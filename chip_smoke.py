@@ -3,18 +3,23 @@
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   0. require a CUDA device; TF32 off for matmuls and convolutions;
-  1. build every kernel from `vins_tpu_torch/csrc/` with nvcc;
+  1. build every kernel from `vins_tpu_torch/csrc/` with nvcc, one process
+     per source, all started together; print each one's ptxas report;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the shapes of the main path;
+     the shapes of the main path: `lk_pyramid` one level at a time and over
+     the whole 752×480 pyramid, `lk_level` (the one-level kernel it
+     replaced, kept as a baseline) one level at a time;
   3. drive the main path, the front-end (`FeatureTracker.read_image`), over
      60 rendered 752×480 EuRoC-layout frames, publishing every second frame;
      check the kernels' launch counts, the published counts and the
      ground-truth epipolar error of the tracks against limits set from the
      JAX tracker's numbers (`tools/port_front_reference.py`), and the same
      run with the plain LK;
-  4. time each kernel, its plain version and `read_image` (on frames already
-     on the card and on 8-bit host frames) with CUDA events, and compute
-     each kernel's bound from the work its inputs need.
+  4. time, per tracked frame of the main path and in turns, the new kernel,
+     the old one, the plain version and an empty kernel of the new one's
+     launch shape (the launch floor), compute the bound from the work the
+     inputs need, and time `read_image` (on frames already on the card and
+     on 8-bit host frames) with CUDA events.
 Then it prints a `kernels` JSON line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 
@@ -34,7 +39,7 @@ WIN, ITERS, EPS, MIN_EIG = 21, 10, 0.01, 1e-4
 N_FEAT = 150
 N_FRAMES = 60
 LEVEL_SHAPES = [(480, 752), (240, 376), (120, 188)]  # EuRoC pyramid, unpadded
-SEARCH = {0: 10, 1: 10, 2: 32}  # per level on the main path (klt.lk_pyramidal)
+WARPS = (1, 2, 4, 8)            # features per block that lk_pyramid is timed at
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, HBM3 peak
 F32_FLOP_PER_S = 67e12          # H100 SXM, float32 outside the tensor cores
 
@@ -57,70 +62,77 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def device_ms(fn, runs: int = 25, warmup: int = 3, sleep_cycles: int = 0) -> float:
-    """Median time of `fn` on the device, from CUDA events.  With
-    `sleep_cycles`, a device sleep is queued first, so the whole call is
-    enqueued before the device reaches the start event and the time is the
-    device's own; without it, host gaps inside the call count."""
+def device_ms(fns: dict, runs: int = 25, warmup: int = 3) -> dict:
+    """Median device time of each function of `fns` {name: (fn,
+    sleep_cycles)}, from CUDA events, the functions taken in turns (the
+    order reversed every other round).  A device sleep of `sleep_cycles` is
+    queued before each call, so the whole call is enqueued before the device
+    reaches the start event and the time is the device's own."""
     import torch
 
-    times = []
+    names = list(fns)
+    times = {name: [] for name in names}
     for i in range(warmup + runs):
-        torch.cuda.synchronize()
-        if sleep_cycles:
+        for name in (names if i % 2 == 0 else names[::-1]):
+            fn, sleep_cycles = fns[name]
+            torch.cuda.synchronize()
             torch.cuda._sleep(sleep_cycles)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        if i >= warmup:
-            times.append(start.elapsed_time(end))
-    return float(np.median(times))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            if i >= warmup:
+                times[name].append(start.elapsed_time(end))
+    return {name: float(np.median(t)) for name, t in times.items()}
 
 
-def union_pixels(Hp: int, Wp: int, y0, x0, P: int) -> int:
-    """Pixels of an Hp×Wp image covered by P×P blocks at corners (y0, x0)."""
+def union_pixels(H: int, W: int, y0, x0, P: int) -> int:
+    """Pixels of an unpadded H×W level read by P×P blocks whose corners
+    (y0, x0) are in the coordinates of the level padded by `pad`: padded
+    (i, j) holds unpadded (clamp(i − pad), clamp(j − pad))."""
     import torch
 
+    pad = WIN // 2 + 2
     ar = torch.arange(P, device=y0.device)
-    idx = (y0[:, None, None] + ar[None, :, None]) * Wp + x0[:, None, None] + ar[None, None, :]
-    mask = torch.zeros(Hp * Wp, dtype=torch.bool, device=y0.device)
+    rows = torch.clamp(y0[:, None] + ar - pad, 0, H - 1)
+    cols = torch.clamp(x0[:, None] + ar - pad, 0, W - 1)
+    idx = rows[:, :, None] * W + cols[:, None, :]
+    mask = torch.zeros(H * W, dtype=torch.bool, device=y0.device)
     mask[idx.reshape(-1)] = True
     return int(mask.sum())
 
 
-def lk_bound_ms(args, search: int, win: int = WIN, iters: int = ITERS):
-    """Least time for one LK level on these inputs: the larger of the bytes
-    the function must move over the HBM rate and its float32 operations over
-    the f32 peak.  Returns (ms, "bytes" or "operations", iterations needed).
+def lk_work(img0, img1, p0, g, valid, search: int, win: int = WIN, iters: int = ITERS):
+    """The work one LK level needs on these inputs (unpadded level images):
+    (bytes, float32 operations, steps needed by each feature [N]).
 
     Bytes: each pixel it must read, once — the union of the (win+3)² img0
     template patches of the valid features, and the union of the (win+1)²
-    img1 patches of the iterations that features passing the gate need (up
-    to the one that freezes; later ones reread the same patch and change
-    nothing) — plus p0, g, valid read and g_new, ok written.  Operations,
-    with the bilinear weights hoisted per feature: per valid feature the
-    (win+2)² template samples (7 each) and the win² gradients and G terms
-    (10 each); per needed iteration win² samples, differences and two
-    products (12 each).  The iterations' positions come from the plain
-    version run with 0..iters iterations."""
+    img1 patches of the steps that features passing the gate need (up to the
+    one that freezes; later ones reread the same patch and change nothing).
+    Operations, with the bilinear weights hoisted per feature: per valid
+    feature the (win+2)² template samples (7 each) and the win² gradients
+    and G terms (10 each); per needed step win² samples, differences and two
+    products (12 each).  The steps' positions come from the plain version
+    run with 0..iters steps."""
     import torch
 
+    from vins_tpu_torch.frontend.image import edge_pad
     from vins_tpu_torch.frontend.klt import _lk_level, floor_index, lk_search_radius
 
-    img0, img1, p0, g, valid = args
-    Hp, Wp = img0.shape
-    n = p0.shape[0]
+    H, W = img0.shape
     half, pad, P0, P1 = win // 2, win // 2 + 2, win + 3, win + 1
+    Hp, Wp = H + 2 * pad, W + 2 * pad
     s = lk_search_radius(win, Hp, Wp, search)
     WS = P1 + 2 * s
+    args = (edge_pad(img0, pad), edge_pad(img1, pad), p0, g, valid)
     runs = [_lk_level(*args, win, k, EPS, MIN_EIG, search=search) for k in range(iters + 1)]
     ok = runs[0][1]
     pos = torch.stack([gk for gk, _ in runs])          # [iters+1, n, 2]
     moved = (pos[1:] != pos[:-1]).any(-1).int()         # [iters, n]
-    # iteration k+1 runs at pos[k]; it is needed while no earlier one froze
+    # step k+1 runs at pos[k]; it is needed while no earlier one froze
     need = torch.cat([torch.ones_like(moved[:1]), torch.cumprod(moved, 0)[:-1]]).bool()
     need &= ok[None]
 
@@ -131,13 +143,23 @@ def lk_bound_ms(args, search: int, win: int = WIN, iters: int = ITERS):
     u = pos[:-1] - half
     lx = torch.clamp(floor_index(u[..., 0]) + pad - wx0, 0, WS - P1)
     ly = torch.clamp(floor_index(u[..., 1]) + pad - wy0, 0, WS - P1)
-    px0 = union_pixels(Hp, Wp, y0, x0, P0)
-    px1 = union_pixels(Hp, Wp, (wy0 + ly)[need], (wx0 + lx)[need], P1)
-    nbytes = 4 * (px0 + px1) + n * (8 + 8 + 1) + n * (8 + 1)
-    n_iter = int(need.sum())
-    flops = int(valid.sum()) * ((win + 2) ** 2 * 7 + win * win * 10) + n_iter * win * win * 12
+    px0 = union_pixels(H, W, y0, x0, P0)
+    px1 = union_pixels(H, W, (wy0 + ly)[need], (wx0 + lx)[need], P1)
+    flops = (int(valid.sum()) * ((win + 2) ** 2 * 7 + win * win * 10)
+             + int(need.sum()) * win * win * 12)
+    return 4 * (px0 + px1), flops, need.sum(0)
+
+
+def lk_bound(levels: list, n: int):
+    """Least time for one tracked frame of LK over the `levels` (lk_work's
+    results): the bytes summed over the levels, plus pts and valid read and
+    g and ok written once, over the HBM rate, and the operations summed over
+    the levels over the f32 peak; the larger of the two.  Returns (ms,
+    "bytes" or "operations")."""
+    nbytes = sum(b for b, _, _ in levels) + n * (8 + 1) + n * (8 + 1)
+    flops = sum(f for _, f, _ in levels)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_iter
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def textured(h: int, w: int, gen, dev):
@@ -163,72 +185,207 @@ def shifted(img, dx: float, dy: float):
     return bilinear(img, torch.stack([xx - dx, yy - dy], -1)).contiguous()
 
 
-def level_inputs(level: int, gen, dev):
-    """Padded level images with a known sub-pixel shift, 150 features."""
+def border_features(p0, g, h: int, w: int, gen):
+    """Puts the first 16 features within the padding of a border, 4 at each
+    edge, with guesses pushed 2-6 px outward, so their patches and search
+    windows clamp against the image edge."""
     import torch
 
-    from vins_tpu_torch.frontend.image import edge_pad
+    pad = WIN // 2 + 2
+    dev = p0.device
+    r = torch.rand((16,), generator=gen, device=dev)
+    out = 2.0 + 4.0 * torch.rand((16,), generator=gen, device=dev)
+    p0[0:4, 0] = 0.3 + (pad - 1.0) * r[0:4]
+    p0[4:8, 0] = (w - 1.3) - (pad - 1.0) * r[4:8]
+    p0[8:12, 1] = 0.3 + (pad - 1.0) * r[8:12]
+    p0[12:16, 1] = (h - 1.3) - (pad - 1.0) * r[12:16]
+    g[:16] = p0[:16]
+    g[0:4, 0] -= out[0:4]
+    g[4:8, 0] += out[4:8]
+    g[8:12, 1] -= out[8:12]
+    g[12:16, 1] += out[12:16]
+
+
+def level_inputs(level: int, gen, dev):
+    """Unpadded level images with a known sub-pixel shift, 150 features (16
+    of them at the borders, see `border_features`), 10 % invalid."""
+    import torch
 
     h, w = LEVEL_SHAPES[level]
-    pad = WIN // 2 + 2
     img0 = textured(h, w, gen, dev)
     img1 = shifted(img0, 0.7, -0.4)
     p0 = torch.rand((N_FEAT, 2), generator=gen, device=dev) \
         * torch.tensor([w - 3.0, h - 3.0], device=dev) + 1.0
-    g = (p0 + 0.6 * (torch.rand((N_FEAT, 2), generator=gen, device=dev) - 0.5)).contiguous()
+    g = p0 + 0.6 * (torch.rand((N_FEAT, 2), generator=gen, device=dev) - 0.5)
+    border_features(p0, g, h, w, gen)
     valid = torch.rand((N_FEAT,), generator=gen, device=dev) > 0.1
-    return (edge_pad(img0, pad).contiguous(), edge_pad(img1, pad).contiguous(),
-            p0.contiguous(), g, valid)
+    valid[:16] = True
+    return img0, img1, p0.contiguous(), g.contiguous(), valid
 
 
-def phase_kernel_vs_plain(dev, gen):
-    """lk_level against klt._lk_level at the three level shapes, search 32
-    and 10: ok identical, max |Δg| ≤ 1e-3 px over features ok in both (f32
-    window sums in another order).  Returns the largest |Δg|."""
+def compare(name: str, gk, okk, gp, okp) -> float:
+    """ok identical and max |Δg| ≤ 1e-3 px over features ok in both (f32
+    window sums in another order); returns the max |Δg|."""
     import torch
 
-    from vins_tpu_torch.frontend.klt import _lk_level
-    from vins_tpu_torch.frontend.klt_cuda import lk_level
+    check(torch.equal(okk, okp), f"{name}: ok differs from the plain version")
+    both = okk & okp
+    check(int(both.sum()) >= N_FEAT // 2, f"{name}: too few ok features ({int(both.sum())})")
+    err = float((gk - gp)[both].abs().max())
+    check(err <= 1e-3, f"{name}: |Δg| {err} > 1e-3 px")
+    return err
 
-    worst = 0.0
+
+def phase_levels(dev, gen):
+    """Each kernel one level at a time against klt._lk_level, at the three
+    level shapes, search 32 and 10: `lk_level` on the padded images,
+    `lk_pyramid` as a one-level pyramid on the unpadded ones.  The new
+    kernel's steps per feature (its trace) must equal those `lk_work` finds
+    the plain version needs: its exit at the freeze.  Returns the largest
+    |Δg| of each kernel."""
+    import torch
+
+    from vins_tpu_torch.frontend.image import edge_pad
+    from vins_tpu_torch.frontend.klt import _lk_level
+    from vins_tpu_torch.frontend.klt_cuda import lk_level, lk_pyramid
+
+    pad = WIN // 2 + 2
+    worst = {"lk_level": 0.0, "lk_pyramid": 0.0}
     for level in range(3):
-        args = level_inputs(level, gen, dev)
+        img0, img1, p0, g, valid = level_inputs(level, gen, dev)
+        padded = (edge_pad(img0, pad).contiguous(), edge_pad(img1, pad).contiguous())
         for search in (32, 10):
-            gk, okk = lk_level(*args, win=WIN, iters=ITERS, eps=EPS,
+            gp, okp = _lk_level(*padded, p0, g, valid, WIN, ITERS, EPS, MIN_EIG, search=search)
+            gl, okl = lk_level(*padded, p0, g, valid, win=WIN, iters=ITERS, eps=EPS,
                                min_eig_thresh=MIN_EIG, search=search)
-            gp, okp = _lk_level(*args, WIN, ITERS, EPS, MIN_EIG, search=search)
+            trace = torch.zeros((N_FEAT, 1, 4), device=dev)
+            gk, okk = lk_pyramid.launch([img0], [img1], p0, valid, g, WIN, ITERS, EPS, MIN_EIG,
+                                        (search,), trace=trace)
             torch.cuda.synchronize()
-            check(bool(torch.equal(okk, okp)),
-                  f"lk_level ok differs from the plain version (level {level}, search {search})")
-            both = okk & okp
-            err = float((gk - gp)[both].abs().max()) if bool(both.any()) else 0.0
-            check(int(both.sum()) >= N_FEAT // 2, f"too few ok features at level {level}")
-            check(err <= 1e-3, f"lk_level |Δg| {err} > 1e-3 px (level {level}, search {search})")
-            worst = max(worst, err)
-            log(f"phase 2: level {level} {tuple(args[0].shape)} search {search}: "
-                f"ok {int(okk.sum())}/{N_FEAT} identical, max|Δg| {err:.3e} px")
+            tag = f"level {level} {tuple(img0.shape)} search {search}"
+            el = compare(f"lk_level {tag}", gl, okl, gp, okp)
+            ek = compare(f"lk_pyramid {tag}", gk, okk, gp, okp)
+            steps = trace[:, 0, 3].long()
+            _, _, need = lk_work(img0, img1, p0, g, valid, search)
+            bad = int((steps != need).sum())
+            check(bad == 0, f"lk_pyramid {tag}: {bad} features ran another number of steps "
+                            f"than the plain version needs")
+            worst["lk_level"] = max(worst["lk_level"], el)
+            worst["lk_pyramid"] = max(worst["lk_pyramid"], ek)
+            log(f"phase 2: {tag}: ok {int(okk.sum())}/{N_FEAT} identical; max|Δg| lk_pyramid "
+                f"{ek:.3e} px, lk_level {el:.3e} px; lk_pyramid ran {int(steps.sum())} steps "
+                f"of {int(okk.sum()) * ITERS}, as many as needed")
+    return worst
+
+
+def pyramid_inputs(gen, dev, flow=(9.6, -6.2)):
+    """A 752×480 textured pair moved by `flow` px, its 3-level pyramids, and
+    150 features (16 at the borders), 10 % invalid."""
+    import torch
+
+    from vins_tpu_torch.frontend.image import build_pyramid
+
+    h, w = LEVEL_SHAPES[0]
+    img0 = textured(h, w, gen, dev)
+    img1 = shifted(img0, *flow)
+    pts = torch.rand((N_FEAT, 2), generator=gen, device=dev) \
+        * torch.tensor([w - 3.0, h - 3.0], device=dev) + 1.0
+    border_features(pts, pts.clone(), h, w, gen)
+    valid = torch.rand((N_FEAT,), generator=gen, device=dev) > 0.1
+    valid[:16] = True
+    return build_pyramid(img0, 3), build_pyramid(img1, 3), pts.contiguous(), valid
+
+
+def phase_pyramid(dev, gen) -> float:
+    """The three-level launch on the 752×480 pyramid.  (a) Level by level:
+    each level's result, ok and steps (the kernel's trace) against
+    klt._lk_level run from the kernel's own result of the level above, held
+    as `phase_levels` holds one level; the launch returns the last level's
+    result and the AND of the levels' ok.  (b) End to end against
+    klt._lk_pyramid: ok identical (the gates read img0 at pts only), and
+    |Δg| ≤ 1e-3 px on every feature that converged: its ε-freeze came before
+    the last step at every level, in both runs.  A track that never
+    converges (one that runs off the image into the padding flows ~2 px a
+    step through all 10 steps of every level) does not contract a
+    difference of its input but grows it, so there the ~1e-5 px f32 noise
+    of the level above becomes ~1e-2 px; those are counted and reported,
+    and (a) holds them level by level.  (c) The results are identical at
+    every block size.  Returns the largest |Δg| of (a)."""
+    import torch
+
+    from vins_tpu_torch.frontend.image import edge_pad
+    from vins_tpu_torch.frontend.klt import _lk_level, _lk_pyramid, level_searches
+    from vins_tpu_torch.frontend.klt_cuda import lk_pyramid
+
+    pad = WIN // 2 + 2
+    pyr0, pyr1, pts, valid = pyramid_inputs(gen, dev)
+    trace = torch.zeros((N_FEAT, 3, 4), device=dev)
+    gk, okk = lk_pyramid.launch(pyr0, pyr1, pts, valid, trace=trace)
+    torch.cuda.synchronize()
+
+    # (a) level by level, from the kernel's own inputs
+    worst, g, ok = 0.0, pts / 4.0, valid
+    for lvl, search in zip((2, 1, 0), level_searches(3)[::-1]):
+        p0 = pts / 2.0 ** lvl
+        gp, okp = _lk_level(edge_pad(pyr0[lvl], pad), edge_pad(pyr1[lvl], pad), p0, g, valid,
+                            WIN, ITERS, EPS, MIN_EIG, search=search)
+        gl, okl = trace[:, lvl, :2], trace[:, lvl, 2].bool()
+        worst = max(worst, compare(f"lk_pyramid, 3 levels, level {lvl}", gl, okl, gp, okp))
+        need = lk_work(pyr0[lvl], pyr1[lvl], p0, g, valid, search)[2]
+        check(torch.equal(trace[:, lvl, 3].long(), need),
+              f"lk_pyramid, 3 levels, level {lvl}: steps differ from those needed")
+        ok = ok & okl
+        g = gl * 2.0 if lvl else gl
+    check(torch.equal(gk, g) and torch.equal(okk, ok),
+          "lk_pyramid: the output is not the last level's result and the AND of the ok")
+
+    # (b) end to end against the plain chain
+    gp, okp = _lk_pyramid(pyr0, pyr1, pts, valid)
+    check(torch.equal(okk, okp), "lk_pyramid, 3 levels: ok differs from _lk_pyramid")
+    need = torch.stack([lk_work(*c)[2] for c in level_chain(pyr0, pyr1, pts, valid)], 1)
+    converged = okk & (need < ITERS).all(1) & (trace[:, :, 3] < ITERS).all(1)
+    d = (gk - gp).abs().max(1).values
+    rest = okk & ~converged
+    e_conv = float(d[converged].max())
+    e_rest = float(d[rest].max()) if bool(rest.any()) else 0.0
+    check(int(converged.sum()) >= N_FEAT // 2, "lk_pyramid, 3 levels: too few converged tracks")
+    check(e_conv <= 1e-3, f"lk_pyramid, 3 levels: |Δg| {e_conv} > 1e-3 px on a converged track")
+
+    # (c) the block size changes nothing
+    for wpb in WARPS:
+        gw, okw = lk_pyramid.launch(pyr0, pyr1, pts, valid, warps_per_block=wpb)
+        torch.cuda.synchronize()
+        check(torch.equal(gw, gk) and torch.equal(okw, okk),
+              f"lk_pyramid with {wpb} warps per block differs from the default")
+    log(f"phase 2: lk_pyramid, 3 levels 752x480, flow (9.6, -6.2) px, ok {int(okk.sum())}/"
+        f"{N_FEAT}: level by level from its own inputs max|Δg| {worst:.3e} px, ok and steps "
+        f"identical; end to end against _lk_pyramid ok identical, max|Δg| {e_conv:.3e} px "
+        f"over {int(converged.sum())} converged tracks, {e_rest:.3e} px over the "
+        f"{int(rest.sum())} that never converged; identical at "
+        f"{', '.join(map(str, WARPS))} warps per block")
     return worst
 
 
 def phase_pyramid_shift(dev):
-    """The 3-level pyramid on the kernel recovers a (5.3, −3.7) px shift at
-    the four points of the JAX package's own test (320×240)."""
+    """lk_pyramidal on the kernel recovers a (5.3, −3.7) px shift at the four
+    points of the JAX package's own test (320×240), in one launch."""
     import torch
 
     from vins_tpu_torch.frontend.klt import lk_pyramidal
-    from vins_tpu_torch.frontend.klt_cuda import lk_level
+    from vins_tpu_torch.frontend.klt_cuda import lk_level, lk_pyramid
 
     img0 = textured(240, 320, torch.Generator(device=dev).manual_seed(1), dev)
     img1 = shifted(img0, 5.3, -3.7)
     pts = torch.tensor([[60.0, 60.0], [160.0, 80.0], [240.0, 180.0], [100.0, 200.0]],
                        device=dev)
-    before = lk_level.launches
+    before = lk_pyramid.launches, lk_level.launches
     out, ok = lk_pyramidal(img0, img1, pts, torch.ones(len(pts), dtype=torch.bool, device=dev))
     torch.cuda.synchronize()
-    check(lk_level.launches - before == 3, "lk_pyramidal did not launch the kernel per level")
+    check((lk_pyramid.launches - before[0], lk_level.launches - before[1]) == (1, 0),
+          "lk_pyramidal did not launch lk_pyramid exactly once")
     err = float((out - pts - torch.tensor([5.3, -3.7], device=dev)).abs().max())
     check(bool(ok.all()) and err < 0.05, f"pyramid shift error {err} px (ok {bool(ok.all())})")
-    log(f"phase 2: 3-level pyramid recovers (5.3, -3.7) px to {err:.4f} px")
+    log(f"phase 2: lk_pyramidal recovers (5.3, -3.7) px to {err:.4f} px in 1 launch")
 
 
 class plain_lk:
@@ -236,15 +393,15 @@ class plain_lk:
     tensors too: the instance attribute shadows the kernel launch."""
 
     def __enter__(self):
-        from vins_tpu_torch.frontend.klt import _lk_level
-        from vins_tpu_torch.frontend.klt_cuda import lk_level
+        from vins_tpu_torch.frontend.klt import _lk_pyramid
+        from vins_tpu_torch.frontend.klt_cuda import lk_pyramid
 
-        lk_level.launch = _lk_level
+        lk_pyramid.launch = _lk_pyramid
 
     def __exit__(self, *exc):
-        from vins_tpu_torch.frontend.klt_cuda import lk_level
+        from vins_tpu_torch.frontend.klt_cuda import lk_pyramid
 
-        del lk_level.launch
+        del lk_pyramid.launch
 
 
 def run_front(seq, dev, timed: bool = False, frames=None):
@@ -342,7 +499,7 @@ def phase_lockstep(seq, dev):
 def phase_main(dev):
     import torch
 
-    from vins_tpu_torch.frontend.klt_cuda import lk_level
+    from vins_tpu_torch.frontend.klt_cuda import lk_level, lk_pyramid
     from vins_tpu_torch.sim import proxy
 
     t0 = time.perf_counter()
@@ -351,14 +508,16 @@ def phase_main(dev):
     log(f"phase 3: rendered {N_FRAMES} frames {tuple(seq.frames[0].shape)} "
         f"in {time.perf_counter() - t0:.2f} s")
 
-    lk_level.launches = 0
+    lk_pyramid.launches = lk_level.launches = 0
     published, _ = run_front(seq, dev)
-    launches = lk_level.launches
+    launches = {"lk_pyramid": lk_pyramid.launches, "lk_level": lk_level.launches}
     tracked = N_FRAMES - 1
-    check(launches == 3 * tracked,
-          f"lk_level launched {launches} times, expected 3 x {tracked} tracked frames")
-    log(f"phase 3: kernel run: lk_level launches {launches} (= 3 x {tracked} tracked "
-        f"frames); sync-debug mode detected no host sync on a track-only frame")
+    check(launches == {"lk_pyramid": tracked, "lk_level": 0},
+          f"launches {launches}, expected lk_pyramid once per tracked frame ({tracked}) "
+          f"and lk_level never")
+    log(f"phase 3: kernel run: lk_pyramid launches {launches['lk_pyramid']} (= {tracked} "
+        f"tracked frames), lk_level {launches['lk_level']}; sync-debug mode detected no "
+        f"host sync on a track-only frame")
     for k, f in published.items():
         check(np.isfinite(f.pts).all() and np.isfinite(f.vel).all() and f.pts.shape[1] == 2,
               f"frame {k}: non-finite or misshapen published features")
@@ -368,7 +527,8 @@ def phase_main(dev):
     # the same sequence once more with the plain LK on the card
     with plain_lk():
         published_plain, _ = run_front(seq, dev)
-    check(lk_level.launches == launches, "the plain run launched the kernel")
+    check({"lk_pyramid": lk_pyramid.launches, "lk_level": lk_level.launches} == launches,
+          "the plain run launched a kernel")
     qp = proxy.track_quality(seq, published_plain)
     check_quality(qp, "plain-LK run")
     check(qp["frames"] == q["frames"], "plain and kernel runs published different frames")
@@ -378,44 +538,130 @@ def phase_main(dev):
     return seq, launches
 
 
-def phase_timing(dev, gen, seq):
-    """Per level: the kernel and the plain version at the main path's shapes
-    (device time); per frame: read_image on published and track-only
-    frames (event time of the whole call, host gaps included), once with
-    the frames already on the card and once with 8-bit host frames, as a
-    camera delivers them, whose upload the call then includes."""
-    from vins_tpu_torch.frontend.klt import _lk_level
+def frame_inputs(seq, dev, frame: int = 21):
+    """The LK inputs of one tracked frame of the main path: a tracker run
+    over frames 0..frame-1 gives the previous CLAHE'd frame and its
+    features; the pyramids are those of that frame and the next."""
+    from vins_tpu_torch.frontend.image import build_pyramid, clahe
+    from vins_tpu_torch.frontend.tracker import FeatureTracker
+    from vins_tpu_torch.sim import proxy
+
+    tr = FeatureTracker(proxy.euroc_camera(device=dev), max_cnt=N_FEAT, min_dist=30,
+                        f_threshold=1.0, equalize=True, focal=proxy.FOCAL, device=dev)
+    for i in range(frame):
+        tr.read_image(seq.frames[i], float(seq.t[i]), publish=i % 2 == 0)
+    state = tr._state
+    return (build_pyramid(state.prev_img.contiguous(), 3),
+            build_pyramid(clahe(seq.frames[frame]).contiguous(), 3),
+            state.pts.contiguous(), state.valid.contiguous())
+
+
+def level_chain(pyr0, pyr1, pts, valid):
+    """Each level's inputs (img0, img1, p0, g, valid, search) as the plain
+    version chains them, top level first."""
+    from vins_tpu_torch.frontend.image import edge_pad
+    from vins_tpu_torch.frontend.klt import _lk_level, level_searches
+
+    pad = WIN // 2 + 2
+    searches = level_searches(3)
+    g = pts / 4.0
+    chain = []
+    for lvl in (2, 1, 0):
+        p0 = (pts / 2.0 ** lvl).contiguous()
+        chain.append((pyr0[lvl], pyr1[lvl], p0, g.contiguous(), valid, searches[lvl]))
+        g, _ = _lk_level(edge_pad(pyr0[lvl], pad), edge_pad(pyr1[lvl], pad), p0, g, valid,
+                         WIN, ITERS, EPS, MIN_EIG, search=searches[lvl])
+        g = g * 2.0 if lvl else g
+    return chain
+
+
+def old_path(pyr0, pyr1, pts, valid):
+    """The main path's LK before the one-launch kernel: padded copies of the
+    six level images, and per level p0, one `lk_level` launch, ok ANDed and
+    g doubled."""
+    from vins_tpu_torch.frontend.image import edge_pad
+    from vins_tpu_torch.frontend.klt import level_searches
     from vins_tpu_torch.frontend.klt_cuda import lk_level
 
-    levels = []
-    for level in (2, 1, 0):
-        args = level_inputs(level, gen, dev)
-        s = SEARCH[level]
-        ms = device_ms(lambda: lk_level(*args, win=WIN, iters=ITERS, eps=EPS,
-                                        min_eig_thresh=MIN_EIG, search=s),
-                       sleep_cycles=2_000_000)
-        plain = device_ms(lambda: _lk_level(*args, WIN, ITERS, EPS, MIN_EIG, search=s),
-                          sleep_cycles=100_000_000)
-        Hp, Wp = args[0].shape
-        bound, by, n_iter = lk_bound_ms(args, s)
-        levels.append(dict(level=level, shape=[Hp, Wp], search=s, ms=ms, plain_ms=plain,
-                           bound_ms=bound, bound_by=by, iterations_needed=n_iter))
-        log(f"phase 4: lk_level level {level} {Hp}x{Wp} search {s}: kernel {ms * 1e3:.1f} us, "
-            f"plain {plain * 1e3:.1f} us, bound {bound * 1e3:.3f} us ({by}; "
-            f"{n_iter} feature-iterations needed of {N_FEAT * ITERS})")
+    pad = WIN // 2 + 2
+    p0s = [edge_pad(p, pad).contiguous() for p in pyr0]
+    p1s = [edge_pad(p, pad).contiguous() for p in pyr1]
+    searches = level_searches(3)
+    g, ok = pts / 4.0, valid
+    for lvl in (2, 1, 0):
+        p0 = (pts / 2.0 ** lvl).contiguous()
+        g, ok_l = lk_level(p0s[lvl], p1s[lvl], p0, g.contiguous(), valid, win=WIN, iters=ITERS,
+                           eps=EPS, min_eig_thresh=MIN_EIG, search=searches[lvl])
+        ok = ok & ok_l
+        if lvl:
+            g = g * 2.0
+    return g, ok
+
+
+def phase_timing(dev, seq):
+    """Per tracked frame at the main path's inputs (frame 21 of the
+    sequence), in turns: lk_pyramid (1 launch) at each block size, its
+    launch floor, lk_level's 3 launches alone and with the glue the main
+    path ran around them, and the plain version; the bound of the same
+    work.  Per frame: read_image on published and track-only frames (event
+    time of the whole call, host gaps included), once with the frames
+    already on the card and once with 8-bit host frames, as a camera
+    delivers them, whose upload the call then includes."""
+    from vins_tpu_torch.frontend.image import edge_pad
+    from vins_tpu_torch.frontend.klt import _lk_pyramid
+    from vins_tpu_torch.frontend.klt_cuda import WARPS_PER_BLOCK, lk_level, lk_pyramid
+
+    pyr0, pyr1, pts, valid = frame_inputs(seq, dev)
+    pad = WIN // 2 + 2
+    chain = level_chain(pyr0, pyr1, pts, valid)
+    padded = [(edge_pad(a, pad).contiguous(), edge_pad(b, pad).contiguous(), p0, g, v, s)
+              for a, b, p0, g, v, s in chain]
+
+    def old_kernel():
+        for a, b, p0, g, v, s in padded:
+            lk_level(a, b, p0, g, v, win=WIN, iters=ITERS, eps=EPS, min_eig_thresh=MIN_EIG,
+                     search=s)
+
+    fns = {f"lk_pyramid_w{w}": (lambda w=w: lk_pyramid.launch(pyr0, pyr1, pts, valid,
+                                                              warps_per_block=w), 2_000_000)
+           for w in WARPS}
+    fns["launch_floor"] = (lambda: lk_pyramid.launch(pyr0, pyr1, pts, valid, floor=True),
+                           2_000_000)
+    fns["lk_level_x3"] = (old_kernel, 2_000_000)
+    fns["lk_level_path"] = (lambda: old_path(pyr0, pyr1, pts, valid), 5_000_000)
+    fns["plain"] = (lambda: _lk_pyramid(pyr0, pyr1, pts, valid), 200_000_000)
+    t = device_ms(fns)
+    t["lk_pyramid"] = t[f"lk_pyramid_w{WARPS_PER_BLOCK}"]
+
+    works = [lk_work(a, b, p0, g, v, s) for a, b, p0, g, v, s in chain]
+    bound, by = lk_bound(works, pts.shape[0])
+    levels = [dict(level=lvl, shape=list(a.shape), search=s, bytes=w[0], flops=w[1],
+                   steps_needed=int(w[2].sum()))
+              for lvl, (a, _, _, _, _, s), w in zip((2, 1, 0), chain, works)]
+    n_valid = int(valid.sum())
+    log(f"phase 4: LK per tracked frame (frame 21, {n_valid} valid features; steps needed "
+        f"by level 2/1/0: {'/'.join(str(lv['steps_needed']) for lv in levels)} of "
+        f"{n_valid * ITERS} each): lk_pyramid {t['lk_pyramid'] * 1e3:.2f} us "
+        f"({WARPS_PER_BLOCK} warps per block; "
+        + ", ".join(f"{w}: {t[f'lk_pyramid_w{w}'] * 1e3:.2f}" for w in WARPS)
+        + f"), launch floor {t['launch_floor'] * 1e3:.2f} us, lk_level x3 "
+        f"{t['lk_level_x3'] * 1e3:.2f} us, lk_level path with glue "
+        f"{t['lk_level_path'] * 1e3:.2f} us, plain {t['plain'] * 1e3:.1f} us, bound "
+        f"{bound * 1e3:.3f} us ({by})")
+
     host = [np.clip(np.rint(f.cpu().numpy()), 0, 255).astype(np.uint8) for f in seq.frames]
     frame = {}
     for kind, frames in (("device", None), ("host_u8", host)):
         _, times = run_front(seq, dev, timed=True, frames=frames)
-        pub = [t for i, t in enumerate(times) if i >= 10 and i % 2 == 0]
-        trk = [t for i, t in enumerate(times) if i >= 10 and i % 2 == 1]
+        pub = [x for i, x in enumerate(times) if i >= 10 and i % 2 == 0]
+        trk = [x for i, x in enumerate(times) if i >= 10 and i % 2 == 1]
         frame[kind] = dict(published_ms=float(np.median(pub)),
                            track_only_ms=float(np.median(trk)),
                            n_published=len(pub), n_track_only=len(trk))
         log(f"phase 4: read_image, {kind} frames, median over frames 10-59: published "
             f"{frame[kind]['published_ms']:.3f} ms (n={len(pub)}), track-only "
             f"{frame[kind]['track_only_ms']:.3f} ms (n={len(trk)})")
-    return levels, frame
+    return t, bound, by, levels, frame
 
 
 def main() -> int:
@@ -425,6 +671,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device is visible")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vins_tpu_torch import build
+    from vins_tpu_torch.frontend.klt_cuda import WARPS_PER_BLOCK, lk_level, lk_pyramid
 
     # ---- 0. device -------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -439,36 +686,51 @@ def main() -> int:
         f"and cuDNN; card: {card}")
 
     # ---- 1. build ----------------------------------------------------------
-    for name in build.KERNELS:
-        built = build.build(name)
-        if built is None:
+    t0 = time.perf_counter()
+    built = build.build_all()
+    log(f"phase 1: {len(built)} libraries, one nvcc each in parallel, "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, b in built.items():
+        if b is None:
             log(f"phase 1: {name}: already built")
             continue
-        sec, ptxas = built
-        info = [ln.strip() for ln in ptxas.splitlines() if "registers" in ln or "smem" in ln]
+        sec, ptxas = b
+        info = [ln.strip() for ln in ptxas.splitlines()
+                if "registers" in ln or "smem" in ln or "Compiling entry" in ln]
         log(f"phase 1: {name}: built by nvcc in {sec:.2f} s; " + " | ".join(info))
+    pyr_lib, lvl_lib = lk_pyramid._library(), lk_level._library()
+    log(f"phase 1: dynamic shared memory per block: lk_pyramid "
+        f"{pyr_lib.lk_pyramid_smem_bytes(3, WARPS_PER_BLOCK)} B (3 levels, {WARPS_PER_BLOCK} "
+        f"warp(s) per block); lk_level {lvl_lib.lk_level_smem_bytes(WIN, 32)} B at search 32, "
+        f"{lvl_lib.lk_level_smem_bytes(WIN, 10)} B at search 10")
 
     # ---- 2. kernels against their plain versions ---------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = phase_kernel_vs_plain(dev, gen)
+    worst = phase_levels(dev, gen)
+    worst["lk_pyramid"] = max(worst["lk_pyramid"], phase_pyramid(dev, gen))
     phase_pyramid_shift(dev)
 
     # ---- 3. the main path ----------------------------------------------------
     seq, launches = phase_main(dev)
 
     # ---- 4. timing -------------------------------------------------------------
-    levels, frame = phase_timing(dev, gen, seq)
+    t, bound, by, levels, frame = phase_timing(dev, seq)
     log("phase 4: front-end " + json.dumps(frame))
 
-    kernels = [dict(
-        name="lk_level", route="cuda", source="vins_tpu_torch/csrc/lk_level.cu",
-        replaces="vins_tpu/frontend/klt_pallas.py:166", launches=launches,
-        max_abs_err=max_err,
-        # one tracked frame: levels 2, 1, 0 at the main path's shapes
-        ms=sum(lv["ms"] for lv in levels), plain_ms=sum(lv["plain_ms"] for lv in levels),
-        bound_ms=sum(lv["bound_ms"] for lv in levels),
-        bound_by=max(levels, key=lambda lv: lv["bound_ms"])["bound_by"],
-        library_ms=None, per_level=levels)]
+    # per tracked frame: levels 2, 1, 0 at the main path's inputs
+    common = dict(route="cuda", replaces="vins_tpu/frontend/klt_pallas.py:166",
+                  plain_ms=t["plain"], bound_ms=bound, bound_by=by, library_ms=None)
+    kernels = [
+        dict(name="lk_pyramid", source="vins_tpu_torch/csrc/lk_pyramid.cu",
+             launches=launches["lk_pyramid"], max_abs_err=worst["lk_pyramid"],
+             ms=t["lk_pyramid"], **common, launch_floor_ms=t["launch_floor"],
+             warps_per_block=WARPS_PER_BLOCK,
+             ms_by_warps_per_block={w: t[f"lk_pyramid_w{w}"] for w in WARPS},
+             per_level=levels),
+        dict(name="lk_level", source="vins_tpu_torch/csrc/lk_level.cu",
+             launches=launches["lk_level"], max_abs_err=worst["lk_level"],
+             ms=t["lk_level_x3"], **common, path_with_glue_ms=t["lk_level_path"]),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,12 +17,13 @@ from vins_tpu.frontend import image as jimage
 from vins_tpu.frontend import klt as jklt
 from vins_tpu.init import relative_pose as jrel
 from vins_tpu.sim import render as jrender
-from vins_tpu_torch import convert
+from vins_tpu_torch import bench_lk, convert
+from vins_tpu_torch.build import CSRC
 from vins_tpu_torch.frontend import detect as tdetect
 from vins_tpu_torch.frontend import fused as tfused
 from vins_tpu_torch.frontend import image as timage
 from vins_tpu_torch.frontend import klt as tklt
-from vins_tpu_torch.frontend.klt_cuda import lk_level
+from vins_tpu_torch.frontend.klt_cuda import lk_level, lk_pyramid
 from vins_tpu_torch.init import relative_pose as trel
 
 torch.set_num_threads(1)
@@ -90,8 +91,8 @@ def test_shi_tomasi_and_detect_grid_match_jax(frames):
                                   np.asarray(jp)[np.asarray(jok)])
 
 
-@pytest.mark.parametrize("search", [32, 10])
-def test_lk_level_matches_jax(frames, search):
+def _level_inputs(frames, search):
+    """Padded level images and 48 features, 15 % of them invalid."""
     img0p = np.pad(frames[0], PAD, mode="edge")
     img1p = np.pad(frames[1], PAD, mode="edge")
     rng = np.random.default_rng(search)
@@ -99,6 +100,13 @@ def test_lk_level_matches_jax(frames, search):
     p0 = rng.uniform(1, [W - 2, H - 2], (N, 2)).astype(np.float32)
     g = (p0 + rng.uniform(-3, 3, (N, 2)) + [2.0, 1.0]).astype(np.float32)
     valid = rng.uniform(size=N) > 0.15
+    return img0p, img1p, p0, g, valid
+
+
+@pytest.mark.parametrize("search", [32, 10])
+def test_lk_level_matches_jax(frames, search):
+    img0p, img1p, p0, g, valid = _level_inputs(frames, search)
+    N = len(p0)
     jg, jok = jklt._lk_level(jnp.asarray(img0p), jnp.asarray(img1p), jnp.asarray(p0),
                              jnp.asarray(g), jnp.asarray(valid), WIN, 10, 0.01, 1e-4,
                              search=search)
@@ -112,6 +120,78 @@ def test_lk_level_matches_jax(frames, search):
     np.testing.assert_allclose(np.asarray(tg)[ok], np.asarray(jg)[ok], atol=1e-3)
 
 
+@pytest.mark.parametrize("search", [32, 10])
+def test_lk_freeze_is_absorbing(frames, search):
+    """The fact the kernel's early exit rests on: once a feature's position
+    does not change from k to k+1 steps, it equals that position for every
+    later k; a feature that is not ok never moves."""
+    img0p, img1p, p0, g, valid = (_t(a) for a in _level_inputs(frames, search))
+    runs = [tklt._lk_level(img0p, img1p, p0, g, valid, WIN, k, 0.01, 1e-4, search=search)
+            for k in range(11)]
+    pos = np.stack([np.asarray(gk) for gk, _ in runs])  # [11, N, 2]
+    ok = np.asarray(runs[0][1])
+    assert 0 < ok.sum() < len(ok)
+    np.testing.assert_array_equal(pos[:, ~ok], np.broadcast_to(np.asarray(g)[~ok],
+                                                                pos[:, ~ok].shape))
+    frozen = 0
+    for n in np.flatnonzero(ok):
+        same = np.all(pos[1:, n] == pos[:-1, n], axis=-1)  # step k+1 left it at pos[k]
+        if same.any():
+            k = int(np.argmax(same))
+            np.testing.assert_array_equal(pos[k:, n], np.broadcast_to(pos[k, n],
+                                                                      pos[k:, n].shape))
+            frozen += 1
+    assert frozen > ok.sum() // 2  # most features freeze well before 10 steps
+
+
+def test_lk_pyramid_one_level_is_lk_level(frames):
+    """A one-level pyramid with its guess is `_lk_level` on the padded level,
+    which is how chip_smoke holds the kernel against `_lk_level` per level;
+    the wrapper runs `_lk_pyramid` on CPU tensors and never launches."""
+    img0p, img1p, p0, g, valid = _level_inputs(frames, 32)
+    launches = lk_pyramid.launches
+    for search in (32, 10):
+        tg, tok = lk_pyramid([_t(frames[0])], [_t(frames[1])], _t(p0), _t(valid), _t(g),
+                             searches=(search,))
+        lg, lok = tklt._lk_level(_t(img0p), _t(img1p), _t(p0), _t(g), _t(valid), WIN, 10,
+                                 0.01, 1e-4, search=search)
+        assert torch.equal(tok, lok) and torch.equal(tg, lg)
+    assert lk_pyramid.launches == launches
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        lk_pyramid.launch([_t(frames[0])], [_t(frames[1])], _t(p0), _t(valid))
+
+
+@pytest.mark.parametrize("variant", sorted(bench_lk.VARIANTS))
+def test_bench_lk_variants_apply_to_the_kernel_source(variant):
+    """Each experiment of `vins_tpu_torch/bench_lk.py` is the kernel source
+    with some lines replaced; the lines must still be there."""
+    src = bench_lk.variant_source(variant)
+    assert "lk_pyramid_kernel" in src and src != (CSRC / "lk_pyramid.cu").read_text()
+
+
+def test_lk_pyramidal_matches_jax(frames):
+    """The three-level path: the port (plain `_lk_pyramid` on CPU tensors)
+    against the JAX tracker's XLA path, 48 features, some within the
+    padding of a border."""
+    rng = np.random.default_rng(7)
+    N = 48
+    pts = rng.uniform(PAD, [W - PAD, H - PAD], (N, 2))
+    pts[:4, 0] = rng.uniform(0.5, PAD, 4)           # near the left edge
+    pts[4:8, 0] = rng.uniform(W - PAD, W - 1.5, 4)  # near the right edge
+    pts[8:12, 1] = rng.uniform(0.5, PAD, 4)         # near the top
+    pts[12:16, 1] = rng.uniform(H - PAD, H - 1.5, 4)
+    pts = pts.astype(np.float32)
+    valid = rng.uniform(size=N) > 0.15
+    jp, jok = jklt.lk_pyramidal(jnp.asarray(frames[0]), jnp.asarray(frames[1]),
+                                jnp.asarray(pts), jnp.asarray(valid))
+    tp, tok = tklt.lk_pyramidal(_t(frames[0]), _t(frames[1]), _t(pts), _t(valid))
+    ok = np.asarray(jok)
+    np.testing.assert_array_equal(np.asarray(tok), ok)
+    assert ok.sum() > N // 2
+    # f32 window sums in another order, through three levels of steps
+    np.testing.assert_allclose(np.asarray(tp)[ok], np.asarray(jp)[ok], atol=1e-3)
+
+
 def test_lk_pyramidal_recovers_shift_on_cpu():
     rng = np.random.default_rng(1)
     img0 = smooth_texture(rng, scale=6)
@@ -121,9 +201,10 @@ def test_lk_pyramidal_recovers_shift_on_cpu():
     img1 = timage.bilinear(_t(img0), torch.stack([_t(xx - dx), _t(yy - dy)], -1))
     pts = _t(np.array([[60.0, 60.0], [160.0, 80.0], [240.0, 180.0], [100.0, 200.0]],
                       np.float32))
-    launches = lk_level.launches
+    launches = lk_pyramid.launches, lk_level.launches
     out, ok = tklt.lk_pyramidal(_t(img0), img1, pts, torch.ones(4, dtype=torch.bool))
-    assert lk_level.launches == launches  # CPU tensors never reach the kernel
+    # CPU tensors never reach a kernel
+    assert (lk_pyramid.launches, lk_level.launches) == launches
     assert bool(ok.all())
     assert np.abs(np.asarray(out) - (np.asarray(pts) + [dx, dy])).max() < 0.05
 

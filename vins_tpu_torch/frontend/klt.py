@@ -6,9 +6,10 @@ feature slots are tracked every frame (invalid slots masked); each level
 runs a fixed iteration count with an ε-freeze, and the status mirrors
 OpenCV's min-eigenvalue and border checks.
 
-`_lk_level` is the plain version of one level.  `lk_pyramidal` sends every
-level through `klt_cuda.lk_level`, which launches the CUDA kernel for
-tensors on the card and runs `_lk_level` for tensors on the CPU.
+`_lk_level` is the plain version of one level and `_lk_pyramid` chains it
+over the levels.  `lk_pyramidal` sends the whole pyramid through
+`klt_cuda.lk_pyramid`, which launches one CUDA kernel for all levels on
+tensors on the card and runs `_lk_pyramid` for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import torch
 
 from ..core.linalg import inv2x2
 from .image import build_pyramid, edge_pad
+
+SEARCH, TOP_SEARCH = 10, 32  # search radius below the top level, and on top
 
 
 def floor_index(x: torch.Tensor) -> torch.Tensor:
@@ -115,6 +118,37 @@ def _lk_level(img0, img1, p0, g, valid, win, iters, eps, min_eig_thresh,
     return gcur, ok
 
 
+def level_searches(levels: int) -> tuple:
+    """The search radius of each level, level 0 first: the top level starts
+    from the raw previous position, so it searches ±32 px; the lower levels
+    are pyramid-primed and search ±10 px."""
+    return tuple(TOP_SEARCH if lvl == levels - 1 else SEARCH for lvl in range(levels))
+
+
+def _lk_pyramid(pyr0, pyr1, pts, valid, g=None, win: int = 21, iters: int = 10,
+                eps: float = 0.01, min_eig_thresh: float = 1e-4, searches=None):
+    """All pyramid levels for all features (plain version of the kernel).
+
+    pyr0/pyr1 are unpadded level images, level 0 first; their length is the
+    number of levels.  g [N,2] is the guess at the top level (pts scaled to
+    it by default) and `searches` the radius of each level
+    (`level_searches`).  Returns (g [N,2] at level 0, ok [N] of every
+    level)."""
+    levels = len(pyr0)
+    pad = win // 2 + 2
+    searches = level_searches(levels) if searches is None else searches
+    g = pts / 2.0 ** (levels - 1) if g is None else g
+    ok = valid
+    for lvl in range(levels - 1, -1, -1):
+        p0 = pts / 2.0 ** lvl
+        g, ok_l = _lk_level(edge_pad(pyr0[lvl], pad), edge_pad(pyr1[lvl], pad), p0, g,
+                            valid, win, iters, eps, min_eig_thresh, search=searches[lvl])
+        ok = ok & ok_l
+        if lvl > 0:
+            g = g * 2.0
+    return g, ok
+
+
 def lk_pyramidal(
     img0: torch.Tensor,   # [H,W] previous frame (CLAHE'd, float)
     img1: torch.Tensor,   # [H,W] current frame
@@ -130,29 +164,16 @@ def lk_pyramidal(
     """Track pts from img0 to img1.  Returns (pts1 [N,2], status [N]).
 
     Status false ⇔ invalid input, degenerate gradient structure, or tracked
-    out of border (inBorder, feature_tracker.cpp:5-11).  The top level
-    starts from the raw previous position, so it searches ±32 px; the lower
-    levels are pyramid-primed and search ±10 px."""
-    from .klt_cuda import lk_level
+    out of border (inBorder, feature_tracker.cpp:5-11).  The levels search
+    as `level_searches` says."""
+    from .klt_cuda import lk_pyramid
 
     H, W = img0.shape
     dtype = pts.dtype
-    pad = win // 2 + 2
-    pyr0 = [edge_pad(p, pad).contiguous() for p in build_pyramid(img0.to(dtype), levels)]
-    pyr1 = [edge_pad(p, pad).contiguous() for p in build_pyramid(img1.to(dtype), levels)]
-
-    g = pts / 2.0 ** (levels - 1)
-    ok = valid
-    for lvl in range(levels - 1, -1, -1):
-        p0 = (pts / 2.0 ** lvl).contiguous()
-        top = lvl == levels - 1
-        g, ok_l = lk_level(pyr0[lvl], pyr1[lvl], p0, g.contiguous(), valid,
-                           win=win, iters=iters, eps=eps,
-                           min_eig_thresh=min_eig_thresh,
-                           search=32 if top else 10)
-        ok = ok & ok_l
-        if lvl > 0:
-            g = g * 2.0
+    pyr0 = build_pyramid(img0.to(dtype).contiguous(), levels)
+    pyr1 = build_pyramid(img1.to(dtype).contiguous(), levels)
+    g, ok = lk_pyramid(pyr0, pyr1, pts.contiguous(), valid.contiguous(), None, win, iters,
+                       eps, min_eig_thresh)
 
     # OpenCV rejects points whose integration window leaves the image; the
     # reference then applies its own 1-px inBorder test on top
