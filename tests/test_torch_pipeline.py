@@ -1,0 +1,137 @@
+"""Port parity, the slice as a whole: vins_tpu_torch's `Pipeline` against
+vins_tpu's (serial, loop closure off) on the CPU.
+
+Both get the same 752×480 frames, rendered once by the port's renderer (the
+proxy's textured room and circuit from t = 11 s, where both initialize at
+their first attempt; pixel noise σ = 2), the same 200 Hz noisy biased IMU,
+at 10 Hz over 1.6 s, and the same RANSAC draws (the JAX tracker's and the
+JAX initializer's key sequences).  The estimators are float64 and agree to
+1e-6 m on the same features (test_torch_estimator.py); the trackers are
+float32: their CLAHE and LK agree to 6e-5 px, but the f32 eight-point
+RANSAC turns that into different inlier sets from the first tracked frame
+(ROADMAP Queue 3), so the two estimators see different tracks and their
+initial scales differ.  Their trajectories are held to TRAJ_TOL after an
+SE(3) alignment (each pipeline fixes its own gauge at initialization): the
+measured largest difference is 0.214 m over the 6 frames after
+initialization, the size of each one's error against the truth (ATE 0.12 and
+0.18 m); each is held to the ATE bound of tests/test_proxy_e2e.py."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vins_tpu.config import VinsConfig as JConfig
+from vins_tpu.pipeline import Pipeline as JPipeline
+from vins_tpu.sim import proxy as jproxy
+from vins_tpu.sim.window import R_IC_FORWARD
+from vins_tpu_torch import convert
+from vins_tpu_torch.frontend.tracker import N_HYP
+from vins_tpu_torch.pipeline import Pipeline as TPipeline
+from vins_tpu_torch.sim import proxy as tproxy
+
+torch.set_num_threads(1)
+SECONDS, T0 = 1.6, 11.0
+TRAJ_TOL = 0.3       # m after SE(3) alignment; measured 0.214 m (module docstring)
+ATE_MAX = 0.35       # m, tests/test_proxy_e2e.py:37
+
+
+def make_cfg():
+    """The proxy configuration (vins_tpu/sim/proxy.py:53-76) with 160
+    landmark slots, as the estimator tests use."""
+    return JConfig(image_width=752, image_height=480, focal=460.0, max_cnt=150, min_dist=30,
+                   freq=10, max_landmarks=160, g_norm=9.81, extrinsic_R=R_IC_FORWARD,
+                   extrinsic_t=tuple(tproxy.TIC), loop_closure=False)
+
+
+class JaxDraws:
+    """The JAX tracker's per-frame key (PRNGKey(42), split every frame) and
+    the JAX initializer's (PRNGKey(0), split per essential solve)."""
+
+    def __init__(self, M: int):
+        self.M = M
+        self.track = jax.random.PRNGKey(42)
+        self.init = jax.random.PRNGKey(0)
+
+    def frame(self):
+        self.track, sub = jax.random.split(self.track)
+        return np.asarray(jax.random.gumbel(sub, (N_HYP, self.M), jnp.float32))
+
+    def initializer(self, shape):
+        self.init, sub = jax.random.split(self.init)
+        return torch.from_numpy(np.asarray(jax.random.gumbel(sub, shape, jnp.float32)))
+
+
+def drive(pipe, inp, frames, draws=None):
+    kinds = []
+    for fi, t in enumerate(inp.t):
+        if fi > 0:
+            for ti, a, w in zip(inp.imu_t[fi - 1], inp.acc[fi - 1], inp.gyr[fi - 1]):
+                pipe.process_imu(float(ti), a, w)
+        if draws is None:
+            ev = pipe.process_image(frames[fi], float(t))
+        else:
+            ev = pipe.process_image(frames[fi], float(t), gumbel=draws.frame())
+        if ev.get("published"):
+            kinds.append(ev.get("kind"))
+    return kinds
+
+
+@pytest.fixture(scope="module")
+def runs():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)  # the renderer's 16 frames of 752×480 dominate otherwise
+    try:
+        inp = tproxy.proxy_inputs(duration=SECONDS, t0=T0, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    frames = [f.numpy() for f in inp.frames]
+    cfg = make_cfg()
+    jpipe = JPipeline(cfg, jproxy.euroc_camera(), imu_buf_len=64, dtype=jnp.float64)
+    jkinds = drive(jpipe, inp, frames)
+    tcfg = convert.vins_config(cfg)
+    tpipe = TPipeline(tcfg, tproxy.euroc_camera(device="cpu"), imu_buf_len=64, device="cpu")
+    draws = JaxDraws(cfg.max_cnt)
+    tpipe.estimator.initializer.gumbel = draws.initializer
+    tkinds = drive(tpipe, inp, [torch.from_numpy(f) for f in frames], draws)
+    return dict(inp=inp, jpipe=jpipe, tpipe=tpipe, jkinds=jkinds, tkinds=tkinds)
+
+
+def test_both_initialize_without_reboot(runs):
+    for kinds in (runs["jkinds"], runs["tkinds"]):
+        assert "initialized" in kinds, kinds
+        i0 = kinds.index("initialized")
+        assert all(k == "vio" for k in kinds[i0 + 1:]), kinds
+    assert runs["tkinds"].index("initialized") == runs["jkinds"].index("initialized")
+    assert runs["tpipe"].estimator.failures == runs["jpipe"].estimator.failures == 0
+
+
+def test_trajectories_agree(runs):
+    jt, tt = runs["jpipe"].trajectory, runs["tpipe"].trajectory
+    assert [t for t, _, _ in tt] == [t for t, _, _ in jt]
+    assert len(tt) >= 5
+    P = np.stack([p for _, p, _ in tt])
+    G = np.stack([p for _, p, _ in jt])
+    Pc, Gc = P - P.mean(0), G - G.mean(0)
+    U, _, Vt = np.linalg.svd(Gc.T @ Pc)
+    R = U @ np.diag([1, 1, np.sign(np.linalg.det(U @ Vt))]) @ Vt
+    dp = np.linalg.norm(Pc @ R.T - Gc, axis=1).max()
+    assert dp < TRAJ_TOL, dp
+
+
+def test_ate_under_bound(runs):
+    inp = runs["inp"]
+    for pipe in (runs["jpipe"], runs["tpipe"]):
+        ate = tproxy.ate_rmse_tum(pipe.trajectory, inp.t, inp.p_gt)
+        assert np.isfinite(ate) and ate < ATE_MAX, ate
+
+
+def test_unported_modes_raise():
+    cfg = dataclasses.replace(convert.vins_config(make_cfg()), loop_closure=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        TPipeline(cfg, tproxy.euroc_camera(device="cpu"), device="cpu")
+    with pytest.raises(NotImplementedError, match="overlap"):
+        TPipeline(convert.vins_config(make_cfg()), tproxy.euroc_camera(device="cpu"),
+                  overlap=True, device="cpu")

@@ -6,12 +6,18 @@ fields that numpy can read) and returns the port's counterpart on
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
+
 import numpy as np
 import torch
 
+from .config import VinsConfig
 from .core import cameras
 from .frontend.fused import FrontState
+from .imu.preintegration import ImuNoise, Preintegration
 from .sim.render import Room
+from .solver.problem import FeatureObs, Prior, WindowState
 
 _CAMERAS = {cls.__name__: cls for cls in (
     cameras.PinholeCamera, cameras.MeiCamera, cameras.EquidistantCamera,
@@ -37,3 +43,60 @@ def room(src, device="cuda") -> Room:
 def front_state(src, device="cuda") -> FrontState:
     """A reference `FrontState` → the port's front state."""
     return FrontState(*[_tensor(getattr(src, f), device) for f in FrontState._fields])
+
+
+def window_state(src, device="cuda") -> WindowState:
+    """A reference `WindowState` → the port's."""
+    return WindowState(*[_tensor(getattr(src, f), device) for f in WindowState._fields])
+
+
+def feature_obs(src, device="cuda") -> FeatureObs:
+    """A reference `FeatureObs` → the port's (anchor as int64)."""
+    out = FeatureObs(*[_tensor(getattr(src, f), device) for f in FeatureObs._fields])
+    return out._replace(anchor=out.anchor.long())
+
+
+def prior(src, device="cuda") -> Prior:
+    """A reference `Prior` → the port's."""
+    return Prior(J=_tensor(src.J, device), r0=_tensor(src.r0, device),
+                 lin=window_state(src.lin, device),
+                 valid=_tensor(src.valid, device).bool())
+
+
+def preintegration(src, device="cuda") -> Preintegration:
+    """A reference `Preintegration` (batched or not) → the port's."""
+    return Preintegration(*[_tensor(getattr(src, f), device) for f in Preintegration._fields])
+
+
+def imu_noise(src) -> ImuNoise:
+    return ImuNoise(*[float(getattr(src, f)) for f in ImuNoise._fields])
+
+
+def vins_config(src) -> VinsConfig:
+    """A reference `VinsConfig` → the port's (same fields)."""
+    return VinsConfig(**{f.name: getattr(src, f.name)
+                         for f in dataclasses.fields(VinsConfig)})
+
+
+_ESTIMATOR_HOST = (
+    "frame_count", "solver_flag", "initial_timestamp", "first_imu", "failures",
+    "p", "q", "v", "ba", "bg", "td", "timestamps", "imu_dt", "imu_acc", "imu_gyr",
+    "imu_n", "acc_prev", "gyr_prev", "imu_overflow", "aux_t", "aux_ids", "aux_pt",
+    "aux_dt", "aux_acc", "aux_gyr", "aux_n", "aux_count", "_acc_dt", "_acc_acc",
+    "_acc_gyr", "_acc_n", "last_p", "last_cost", "_post_init_costs",
+    "init_rejected_by_health", "qic", "tic", "estimate_extrinsic", "ex_calib_done",
+)
+_DB_FIELDS = ("ids", "pt", "vel", "uv", "toff", "valid", "inv_depth", "n_dropped",
+              "_min_parallax")
+
+
+def estimator_state(src, dst):
+    """Copy a reference `Estimator`'s whole state — host arrays, feature DB,
+    pending relo match and the (device) prior — into the port `Estimator`
+    `dst`, which then continues from where `src` stands.  Returns `dst`."""
+    for obj, names, target in ((src, _ESTIMATOR_HOST, dst), (src.db, _DB_FIELDS, dst.db)):
+        for name in names:
+            setattr(target, name, copy.deepcopy(getattr(obj, name)))
+    dst._relo = copy.deepcopy(src._relo)
+    dst.prior = prior(src.prior, dst.device)
+    return dst

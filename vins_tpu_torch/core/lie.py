@@ -11,16 +11,57 @@ import math
 import torch
 
 
+_STRUCT = {}
+
+
+def _struct(name: str, dtype, device) -> torch.Tensor:
+    """Constant structure tensors of the quaternion algebra, built once per
+    (dtype, device) by fills on the device (a tensor made from a Python list
+    would be a blocking host-to-device copy):
+      "mul"   [4, 16]: q1 @ mul = Qleft(q1) flattened, Qleft(q1) q2 = q1 ⊗ q2;
+      "right" [4, 16]: q2 @ right = Qright(q2) flattened;
+      "rot"   [16, 9]: (q qᵀ) flattened @ rot = |q|² R(q) flattened;
+      "skew"  [3, 9]:  v @ skew = [v]× flattened."""
+    key = (name, dtype, str(device))
+    if key not in _STRUCT:
+        entries = {
+            # Qleft(q) = [[w,-x,-y,-z],[x,w,-z,y],[y,z,w,-x],[z,-y,x,w]]
+            "mul": [(0, 0, 1), (1, 1, -1), (2, 2, -1), (3, 3, -1),
+                    (1, 4, 1), (0, 5, 1), (3, 6, -1), (2, 7, 1),
+                    (2, 8, 1), (3, 9, 1), (0, 10, 1), (1, 11, -1),
+                    (3, 12, 1), (2, 13, -1), (1, 14, 1), (0, 15, 1)],
+            # Qright(p) = [[w,-x,-y,-z],[x,w,z,-y],[y,-z,w,x],[z,y,-x,w]]
+            "right": [(0, 0, 1), (1, 1, -1), (2, 2, -1), (3, 3, -1),
+                      (1, 4, 1), (0, 5, 1), (3, 6, 1), (2, 7, -1),
+                      (2, 8, 1), (3, 9, -1), (0, 10, 1), (1, 11, 1),
+                      (3, 12, 1), (2, 13, 1), (1, 14, -1), (0, 15, 1)],
+            "skew": [(2, 1, -1), (1, 2, 1), (2, 3, 1), (0, 5, -1), (1, 6, -1), (0, 7, 1)],
+        }
+        if name == "rot":
+            # R·|q|² from the products q_a q_b (a, b ∈ w, x, y, z)
+            w, x, y, z = 0, 1, 2, 3
+            terms = {0: [(w, w, 1), (x, x, 1), (y, y, -1), (z, z, -1)],
+                     1: [(x, y, 2), (w, z, -2)], 2: [(x, z, 2), (w, y, 2)],
+                     3: [(x, y, 2), (w, z, 2)],
+                     4: [(w, w, 1), (x, x, -1), (y, y, 1), (z, z, -1)],
+                     5: [(y, z, 2), (w, x, -2)], 6: [(x, z, 2), (w, y, -2)],
+                     7: [(y, z, 2), (w, x, 2)],
+                     8: [(w, w, 1), (x, x, -1), (y, y, -1), (z, z, 1)]}
+            entries["rot"] = [(4 * a + b, k, v) for k, ts in terms.items() for a, b, v in ts]
+        rows = {"mul": 4, "right": 4, "rot": 16, "skew": 3}[name]
+        cols = {"mul": 16, "right": 16, "rot": 9, "skew": 9}[name]
+        t = torch.zeros((rows, cols), dtype=dtype, device=device)
+        for i, j, v in entries[name]:
+            t[i:i + 1, j:j + 1] = float(v)
+        _STRUCT[key] = t
+    return _STRUCT[key]
+
+
 def qmul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
-    """Hamilton product q1 ⊗ q2; inputs [..., 4] as [w,x,y,z]."""
-    w1, x1, y1, z1 = q1.unbind(-1)
-    w2, x2, y2, z2 = q2.unbind(-1)
-    return torch.stack([
-        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
-        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
-        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
-        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
-    ], dim=-1)
+    """Hamilton product q1 ⊗ q2; inputs [..., 4] as [w,x,y,z]: Qleft(q1) q2,
+    two matrix products whatever the batch."""
+    L = (q1 @ _struct("mul", q1.dtype, q1.device)).unflatten(-1, (4, 4))
+    return (L @ q2[..., None])[..., 0]
 
 
 def qconj(q: torch.Tensor) -> torch.Tensor:
@@ -72,45 +113,24 @@ def qlog(q: torch.Tensor) -> torch.Tensor:
 
 def skew(v: torch.Tensor) -> torch.Tensor:
     """[..., 3] → [..., 3, 3] cross-product matrix (utility.h:30-38)."""
-    x, y, z = v.unbind(-1)
-    zero = torch.zeros_like(x)
-    return torch.stack([
-        torch.stack([zero, -z, y], dim=-1),
-        torch.stack([z, zero, -x], dim=-1),
-        torch.stack([-y, x, zero], dim=-1),
-    ], dim=-2)
-
-
-def _qmat(q: torch.Tensor, sign: float) -> torch.Tensor:
-    w = q[..., 0]
-    v = q[..., 1:]
-    eye = torch.eye(3, dtype=q.dtype, device=q.device)
-    top = torch.cat([w[..., None], -v], dim=-1)[..., None, :]
-    bottom = torch.cat([v[..., :, None], w[..., None, None] * eye + sign * skew(v)], dim=-1)
-    return torch.cat([top, bottom], dim=-2)
+    return (v @ _struct("skew", v.dtype, v.device)).unflatten(-1, (3, 3))
 
 
 def Qleft(q: torch.Tensor) -> torch.Tensor:
     """4×4 matrix L(q) with L(q) p = q ⊗ p (utility.h:50-58)."""
-    return _qmat(q, 1.0)
+    return (q @ _struct("mul", q.dtype, q.device)).unflatten(-1, (4, 4))
 
 
 def Qright(p: torch.Tensor) -> torch.Tensor:
     """4×4 matrix R(p) with R(p) q = q ⊗ p (utility.h:60-68)."""
-    return _qmat(p, -1.0)
+    return (p @ _struct("right", p.dtype, p.device)).unflatten(-1, (4, 4))
 
 
 def q2R(q: torch.Tensor) -> torch.Tensor:
-    """Quaternion [..., 4] → rotation matrix [..., 3, 3]."""
-    w, x, y, z = qnormalize(q).unbind(-1)
-    xx, yy, zz = x * x, y * y, z * z
-    xy, xz, yz = x * y, x * z, y * z
-    wx, wy, wz = w * x, w * y, w * z
-    return torch.stack([
-        torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], dim=-1),
-        torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], dim=-1),
-        torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1),
-    ], dim=-2)
+    """Quaternion [..., 4] (any norm) → rotation matrix [..., 3, 3]."""
+    outer = (q[..., :, None] * q[..., None, :]).flatten(-2)
+    R = outer @ _struct("rot", q.dtype, q.device)
+    return (R / torch.sum(q * q, dim=-1, keepdim=True)).unflatten(-1, (3, 3))
 
 
 def R2q(R: torch.Tensor) -> torch.Tensor:

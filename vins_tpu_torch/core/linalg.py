@@ -20,12 +20,19 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
 
 
+def cholesky_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of [..., n, n] A, NaN where the factorization
+    fails, as JAX's `cholesky` gives.  `cholesky_ex` leaves its info flag on
+    the device, so this neither syncs the host nor raises."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
 def spd_solve(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve H x = b for SPD H via Jacobi-scaled Cholesky."""
     d = torch.sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-30))
     Hn = H / d[..., :, None] / d[..., None, :]
-    L, _ = torch.linalg.cholesky_ex(Hn)
-    return cho_solve(L, (b / d)[..., None])[..., 0] / d
+    return cho_solve(cholesky_nan(Hn), (b / d)[..., None])[..., 0] / d
 
 
 def inv3x3(M: torch.Tensor) -> torch.Tensor:
@@ -160,6 +167,13 @@ def smallest_eigvec(M: torch.Tensor, iters: int = 8) -> torch.Tensor:
         y = cho_solve(L, v[..., None])[..., 0]
         v = y / torch.clamp(torch.linalg.vector_norm(y, dim=-1, keepdim=True), min=1e-30)
     return v
+
+
+def dlt_null_vector(A: torch.Tensor, iters: int = 16) -> torch.Tensor:
+    """Unit null vector (up to sign) of stacked DLT rows A [..., M, 4]: the
+    eigenvector of AᵀA's smallest eigenvalue by `smallest_eigvec`, in place
+    of eigh, whose CUDA path reads its info flag back on the host."""
+    return smallest_eigvec(A.transpose(-1, -2) @ A, iters=iters)
 
 
 def inv2x2(M: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
-"""The EuRoC-layout proxy sequence for the front-end.
+"""The EuRoC-layout proxy: rendered frames + a noisy biased IMU.
 
-Counterpart of the camera half of `vins_tpu/sim/proxy.py`: the EuRoC cam0
+Counterpart of `vins_tpu/sim/proxy.py` (loop closure off): the EuRoC cam0
 calibration (config/euroc.yaml), the body-to-camera extrinsic of the proxy
-runs, rendered frames of the textured room along `Trajectory.circuit`, and
-the ground-truth epipolar error of published tracks.
+runs, rendered frames of the textured room along `Trajectory.circuit`, the
+ground-truth epipolar error of published tracks, the proxy `Pipeline`
+(`make_pipeline`) and its end-to-end run (`run_proxy`, scored by
+`ate_rmse_tum`).
 """
 from __future__ import annotations
 
@@ -12,8 +14,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import lie
+from ..config import VinsConfig
+from ..core import nplie
 from ..core.cameras import PinholeCamera
+from ..pipeline import Pipeline
 from .render import Room, RoomRenderer
 from .synthetic import Trajectory
 
@@ -21,11 +25,15 @@ EUROC_W, EUROC_H = 752, 480
 EUROC_INTRINSICS = dict(fx=461.6, fy=460.3, cx=363.0, cy=248.1,
                         k1=-2.917e-01, k2=8.228e-02, p1=5.333e-05, p2=-1.578e-04)
 TIC = (0.05, -0.02, 0.03)
+BA = (0.02, -0.01, 0.015)      # true accelerometer bias of the proxy IMU
+BG = (0.002, 0.003, -0.001)    # true gyroscope bias
 R_IC_FORWARD = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0))
 FOCAL = 460.0
-# the front-end sequence: a 20 Hz camera on the circuit of the JAX proxy runs
-# (sim/proxy.py: radius 4 m, period 16 s), pixel noise σ = 2
-HZ, RADIUS, PERIOD, PIX_NOISE, TEX_K, SEED = 20.0, 4.0, 16.0, 2.0, 96, 0
+# the proxy runs' scene (vins_tpu/sim/proxy.py): the circuit of radius 4 m
+# and period 16 s, pixel noise σ = 2, 96 texture components, seed 0, a
+# 200 Hz IMU; the pipeline publishes 10 Hz frames, the front-end cell tracks
+# 20 Hz ones (HZ)
+HZ, RADIUS, PERIOD, PIX_NOISE, TEX_K, SEED, IMU_HZ = 20.0, 4.0, 16.0, 2.0, 96, 0, 200.0
 
 
 def euroc_camera(dtype=torch.float32, device="cuda") -> PinholeCamera:
@@ -40,28 +48,12 @@ class Sequence(NamedTuple):
 
 
 def render_sequence(n_frames: int = 60, device="cuda") -> Sequence:
-    """`n_frames` frames at `HZ` of the textured room along
-    `Trajectory.circuit`, through the EuRoC camera, plus Gaussian pixel noise
-    σ = `PIX_NOISE` from a seeded CPU generator (the same noise on every
-    device).  Starts at t = 1 s, as the JAX proxy does."""
-    cam = euroc_camera(device=device)
-    ren = RoomRenderer(cam, EUROC_H, EUROC_W, room=Room.make(SEED + 7, k=TEX_K, device=device),
-                       tic=TIC, Ric=np.asarray(R_IC_FORWARD))
-    traj = Trajectory.circuit(radius=RADIUS, period=PERIOD, height=1.0)
-    gen = torch.Generator().manual_seed(SEED + 13)
-    Ric = np.asarray(R_IC_FORWARD)
-    ts, frames, Rs, ps = [], [], [], []
-    for i in range(n_frames):
-        t = 1.0 + i / HZ
-        p, q = traj.pos_fn(t), traj.q(t)
-        noise = PIX_NOISE * torch.randn((EUROC_H, EUROC_W), generator=gen)
-        img = torch.clamp(ren.render_device(p, q) + noise.to(device), 0.0, 255.0)
-        R_b = lie.q2R(q).numpy()
-        ts.append(t)
-        frames.append(img)
-        Rs.append(R_b @ Ric)
-        ps.append(p.numpy() + R_b @ np.asarray(TIC))
-    return Sequence(np.asarray(ts), frames, np.stack(Rs), np.stack(ps))
+    """`n_frames` frames at `HZ` of the proxy (`proxy_inputs`), with the
+    camera's poses for the epipolar error of tracks."""
+    inp = proxy_inputs(duration=n_frames / HZ, frame_hz=HZ, device=device)
+    R_b = nplie.q2R(inp.q_gt)
+    return Sequence(inp.t, inp.frames, R_b @ np.asarray(R_IC_FORWARD),
+                    inp.p_gt + R_b @ np.asarray(TIC))
 
 
 def epipolar_errors_px(seq: Sequence, i: int, j: int, x_i: np.ndarray,
@@ -100,3 +92,132 @@ def track_quality(seq: Sequence, published: dict) -> dict:
                 sampson_median_px=float(np.median(e)),
                 sampson_p90_px=float(np.percentile(e, 90)),
                 frac_over_1px=float(np.mean(e > 1.0)))
+
+
+def make_pipeline(device="cuda") -> Pipeline:
+    """The proxy's Pipeline (vins_tpu/sim/proxy.py:53-76, loop closure off):
+    752×480 EuRoC camera, 150 features, min_dist 30, publish at 10 Hz, 256
+    landmark slots, the forward extrinsic, the reference yaml's noise
+    densities (acc_n 0.08, gyr_n 0.004), 64-sample IMU intervals, float64
+    estimator."""
+    cfg = VinsConfig(
+        image_width=EUROC_W, image_height=EUROC_H, focal=460.0, max_cnt=150, min_dist=30,
+        freq=10, max_landmarks=256, g_norm=9.81, extrinsic_R=R_IC_FORWARD,
+        extrinsic_t=tuple(TIC), acc_n=0.08, gyr_n=0.004, loop_closure=False)
+    return Pipeline(cfg, euroc_camera(device=device), imu_buf_len=64, device=device)
+
+
+class ProxyInputs(NamedTuple):
+    """Everything a proxy run feeds a pipeline, in order."""
+
+    t: np.ndarray          # [T] frame times
+    frames: list           # T tensors [H,W] float32 (pixel noise included)
+    p_gt: np.ndarray       # [T,3] true body positions
+    q_gt: np.ndarray       # [T,4] wxyz
+    imu_t: np.ndarray      # [T-1, n_sub] sample times after each frame
+    acc: np.ndarray        # [T-1, n_sub, 3] noisy biased accelerometer
+    gyr: np.ndarray        # [T-1, n_sub, 3] noisy biased gyroscope
+
+
+def proxy_inputs(duration: float = 10.0, t0: float = 1.0, frame_hz: float = 10.0,
+                 device="cuda") -> ProxyInputs:
+    """The proxy run's inputs (vins_tpu/sim/proxy.py:79-155): frames at
+    `frame_hz` from t0 of the textured room along `Trajectory.circuit`,
+    rendered on `device` with Gaussian pixel noise from a seeded CPU
+    generator (the same noise on every device), and the IMU between frames
+    with white noise and a bias random walk drawn from
+    `np.random.default_rng(SEED)` in the reference's order (per sample: ba
+    walk, bg walk, accelerometer noise, gyroscope noise)."""
+    rng = np.random.default_rng(SEED)
+    traj = Trajectory.circuit(radius=RADIUS, period=PERIOD, height=1.0)
+    cam = euroc_camera(device=device)
+    ren = RoomRenderer(cam, EUROC_H, EUROC_W, room=Room.make(SEED + 7, k=TEX_K, device=device),
+                       tic=TIC, Ric=np.asarray(R_IC_FORWARD))
+    gen = torch.Generator().manual_seed(SEED + 13)
+
+    # discrete sensor noise: white σ_d = n·√hz; bias random-walk step σ = w·√dt
+    dt_i = 1.0 / IMU_HZ
+    sig_a, sig_g = 0.02 * np.sqrt(IMU_HZ), 0.0017 * np.sqrt(IMU_HZ)
+    wba, wbg = 0.0004 * np.sqrt(dt_i), 2e-5 * np.sqrt(dt_i)
+    n_frames = int(round(duration * frame_hz))
+    n_sub = int(round(IMU_HZ / frame_hz))
+    t = t0 + np.arange(n_frames) / frame_hz
+    imu_t = (t[1:] - 1.0 / frame_hz)[:, None] + np.arange(1, n_sub + 1)[None, :] * dt_i
+    a_true, w_true = traj.imu_at_times(torch.from_numpy(imu_t.reshape(-1)),
+                                       torch.tensor([0.0, 0.0, 9.81], dtype=torch.float64))
+    a_true, w_true = a_true.numpy(), w_true.numpy()
+    ba, bg = np.array(BA), np.array(BG)
+    acc, gyr = np.empty_like(a_true), np.empty_like(w_true)
+    for k in range(len(a_true)):
+        ba += wba * rng.standard_normal(3)
+        bg += wbg * rng.standard_normal(3)
+        acc[k] = a_true[k] + ba + sig_a * rng.standard_normal(3)
+        gyr[k] = w_true[k] + bg + sig_g * rng.standard_normal(3)
+
+    frames, p_gt, q_gt = [], [], []
+    for ti in t:
+        p, q = traj.pos_fn(ti), traj.q(ti)
+        noise = PIX_NOISE * torch.randn((EUROC_H, EUROC_W), generator=gen)
+        frames.append(torch.clamp(ren.render_device(p, q) + noise.to(device), 0.0, 255.0))
+        p_gt.append(p.numpy())
+        q_gt.append(q.numpy())
+    shape = (n_frames - 1, n_sub, 3)
+    return ProxyInputs(t, frames, np.stack(p_gt), np.stack(q_gt), imu_t,
+                       acc.reshape(shape), gyr.reshape(shape))
+
+
+class ProxyRun(NamedTuple):
+    t: np.ndarray        # [T] published frame times
+    p_gt: np.ndarray     # [T,3]
+    q_gt: np.ndarray     # [T,4] wxyz
+    pipe: Pipeline
+    events: list
+
+
+def run_proxy(duration: float = 10.0, pipe: Pipeline | None = None,
+              inputs: ProxyInputs | None = None, device="cuda") -> ProxyRun:
+    """The proxy run end to end (vins_tpu/sim/proxy.py:79-163, loop closure
+    off): per frame the IMU samples since the last frame, then the image."""
+    pipe = pipe or make_pipeline(device=device)
+    inp = inputs or proxy_inputs(duration=duration, device=device)
+    ts, p_gt, q_gt, events = [], [], [], []
+    for fi, t in enumerate(inp.t):
+        if fi > 0:
+            for ti, a, w in zip(inp.imu_t[fi - 1], inp.acc[fi - 1], inp.gyr[fi - 1]):
+                pipe.process_imu(float(ti), a, w)
+        ev = pipe.process_image(inp.frames[fi], float(t))
+        if ev.get("published"):
+            ts.append(float(t))
+            p_gt.append(inp.p_gt[fi])
+            q_gt.append(inp.q_gt[fi])
+            events.append(ev)
+    return ProxyRun(np.asarray(ts), np.stack(p_gt), np.stack(q_gt), pipe, events)
+
+
+def ate_rmse_tum(traj_est: list, t_gt, p_gt, align: str = "se3") -> float:
+    """Score a pipeline trajectory [(t, p, q)] against ground truth with the
+    association and alignment of tools/evaluate_ate.py (vins_tpu/sim/
+    proxy.py:166-193): SE(3) (or "4dof": yaw + translation) Umeyama without
+    scale, then the RMSE of the positions."""
+    if not traj_est:
+        return float("nan")
+    t_e = np.asarray([e[0] for e in traj_est])
+    p_e = np.stack([e[1] for e in traj_est])
+    j = np.clip(np.searchsorted(t_gt, t_e), 0, len(t_gt) - 1)
+    ok = np.abs(t_gt[j] - t_e) <= 0.02
+    P, G = p_e[ok], p_gt[j[ok]]
+    if len(P) < 3:
+        return float("nan")
+    Pc = P - P.mean(0)
+    Gc = G - G.mean(0)
+    if align == "se3":
+        U, S, Vt = np.linalg.svd(Gc.T @ Pc)
+        D = np.diag([1, 1, np.sign(np.linalg.det(U @ Vt))])
+        A = (U @ D @ Vt @ Pc.T).T + G.mean(0)
+    else:  # 4-DoF yaw+t
+        num = np.sum(Gc[:, 1] * Pc[:, 0] - Gc[:, 0] * Pc[:, 1])
+        den = np.sum(Gc[:, 0] * Pc[:, 0] + Gc[:, 1] * Pc[:, 1])
+        th = np.arctan2(num, den)
+        c, s = np.cos(th), np.sin(th)
+        A = (np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]]) @ Pc.T).T + G.mean(0)
+    return float(np.sqrt(np.mean(np.sum((A - G) ** 2, axis=1))))

@@ -81,12 +81,16 @@ _FACE_AXES = ((0, 1, 2), (0, 1, 2), (1, 0, 2), (1, 0, 2), (2, 0, 1), (2, 0, 1))
 def render(rays: torch.Tensor, p_c: torch.Tensor, R_wc: torch.Tensor, room: Room,
            H: int, W: int) -> torch.Tensor:
     """Ray-cast the box interior: rays [HW,3] in the camera frame, camera at
-    p_c with R_wc (world←camera).  Returns [H,W] float32 in [0,255]."""
+    p_c with R_wc (world←camera).  Returns [H,W] float32 in [0,255].  The
+    nearest face of each ray is found first, then each face's texture is
+    evaluated only on the pixels that see it."""
     d = rays @ R_wc.T  # world-frame directions [HW,3]
     o = p_c[None, :]
     n = rays.shape[0]
     best_t = torch.full((n,), torch.inf, dtype=torch.float32, device=rays.device)
-    shade = torch.zeros((n,), dtype=torch.float32, device=rays.device)
+    face = torch.full((n,), -1, dtype=torch.int64, device=rays.device)
+    a_hit = torch.zeros((n,), dtype=torch.float32, device=rays.device)
+    b_hit = torch.zeros_like(a_hit)
     span = room.hi - room.lo
     for f, (ax, ta, tb) in enumerate(_FACE_AXES):
         bound = room.lo[ax] if f % 2 == 0 else room.hi[ax]
@@ -98,10 +102,16 @@ def render(rays: torch.Tensor, p_c: torch.Tensor, R_wc: torch.Tensor, room: Room
         b = (hit[:, tb] - room.lo[tb]) / span[tb]
         inside = (t > 1e-3) & (a >= 0) & (a <= 1) & (b >= 0) & (b <= 1)
         closer = inside & (t < best_t)
-        # slight per-face lighting so faces are distinguishable
-        v = sample_texture(room.textures[f], a, b) * (0.75 + 0.05 * f)
         best_t = torch.where(closer, t, best_t)
-        shade = torch.where(closer, v, shade)
+        face = torch.where(closer, f, face)
+        a_hit = torch.where(closer, a, a_hit)
+        b_hit = torch.where(closer, b, b_hit)
+    shade = torch.zeros((n,), dtype=torch.promote_types(a_hit.dtype, room.textures.dtype),
+                        device=rays.device)
+    for f in range(6):
+        idx = torch.nonzero(face == f)[:, 0]
+        # slight per-face lighting so faces are distinguishable
+        shade[idx] = sample_texture(room.textures[f], a_hit[idx], b_hit[idx]) * (0.75 + 0.05 * f)
     return (20.0 + 215.0 * shade).reshape(H, W)
 
 

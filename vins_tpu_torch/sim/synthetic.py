@@ -1,7 +1,10 @@
-"""Closed-form trajectories (the poses half of `vins_tpu/sim/synthetic.py`).
+"""Closed-form trajectories (`vins_tpu/sim/synthetic.py`: the poses and the
+IMU they imply).
 
 A trajectory is a world position and a body yaw-pitch-roll as analytic
-functions of time, evaluated on tensors.
+functions of time, evaluated on float64 tensors; velocity, acceleration and
+body rates come from `torch.func.jacfwd` over t, so the IMU is exact to
+machine precision.
 """
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+from torch.func import jacfwd, vmap
 
 from ..core import lie
 
@@ -68,3 +72,26 @@ class Trajectory(NamedTuple):
 
     def q(self, t):
         return lie.R2q(self.R(t))
+
+    # -- the IMU half: derivatives by forward-mode AD over t -----------------
+
+    def vel(self, t):
+        return jacfwd(self.pos_fn)(_t(t))
+
+    def acc_world(self, t):
+        return jacfwd(jacfwd(self.pos_fn))(_t(t))
+
+    def omega_body(self, t):
+        """Body angular rate from skew(ω_b) = Rᵀ dR/dt."""
+        t = _t(t)
+        W = self.R(t).T @ jacfwd(self.R)(t)
+        return torch.stack([W[2, 1], W[0, 2], W[1, 0]])
+
+    def imu_at(self, t, gravity):
+        """Exact accelerometer/gyro specific-force measurements."""
+        a_b = self.R(t).T @ (self.acc_world(t) + torch.as_tensor(gravity, dtype=torch.float64))
+        return a_b, self.omega_body(t)
+
+    def imu_at_times(self, ts, gravity):
+        """`imu_at` at every time of `ts` [T]: (acc [T,3], gyr [T,3])."""
+        return vmap(lambda t: self.imu_at(t, gravity))(_t(ts))
