@@ -21,20 +21,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      inputs need, and time `read_image` (on frames already on the card and
      on 8-bit host frames) with CUDA events;
   5. drive the whole main path, `Pipeline.process_image` (serial, loop
-     closure off, float64 estimator) through the port's `run_proxy`: 10 s
-     of rendered 752×480 frames at 10 Hz and a 200 Hz noisy biased IMU;
-     check initialization, only "vio" events after it, no failure, the ATE
-     against limits from the JAX pipeline on the same inputs
-     (`tools/port_pipeline_reference.py`), one `lk_pyramid` launch per
-     tracked frame, every VIO step under CUDA sync-debug mode "error" from
-     the blob upload to the result fetch, and float64 estimator tensors on
-     the card; time each frame (split by the pipeline tracer's spans) and
-     profile one VIO step.
+     closure off, float64 estimator, each VIO step one CUDA graph replay)
+     through the port's `run_proxy`: 10 s of rendered 752×480 frames at
+     10 Hz and a 200 Hz noisy biased IMU; check initialization, only "vio"
+     events after it, no failure, the ATE against limits from the JAX
+     pipeline on the same inputs (`tools/port_pipeline_reference.py`), one
+     `lk_pyramid` launch per tracked frame, one graph replay per VIO step,
+     every VIO step under CUDA sync-debug mode "error" from the blob upload
+     to the start of the result copy, and float64 estimator tensors on the
+     card; time each frame (split by the pipeline tracer's spans) and
+     profile one VIO step;
+  6. on phase 5's inputs, the serial pipeline with the eager step (timed;
+     its trajectory beside phase 5's) and the overlapped pipeline with the
+     graphed step (the same events as phase 5, max |Δp| ≤ 1e-6 m); the
+     graphed step against the eager one on the same blob and prior (≤ 1e-9
+     relative, both marginalizations); one step of each in turns, and the
+     eager step's profile; the kernels of each linear-algebra call; a stream
+     restart mid-run in the overlapped pipeline (the graphs are kept, the
+     prior reset in place, graph ≡ eager after it); then the EuRoC-layout
+     replay: the 10 s tree written by `sim/euroc_writer.py` into a temporary
+     directory, replayed by `run_euroc.replay` on the card, overlapped,
+     held to the three asserts of tests/test_euroc_replay.py and one
+     `lk_pyramid` launch per tracked frame.
 Then it prints a `kernels` JSON line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py                 # every phase
-    python3 chip_smoke.py --phases 5      # build, then only phase 5 (no result lines)
+    python3 chip_smoke.py --phases 5,6    # build, then only phases 5-6 (no result lines)
 """
 from __future__ import annotations
 
@@ -691,25 +704,32 @@ def profile_step(est, marg_old: bool = True):
     """One VIO step (upload, step, result fetch) of the estimator's current
     window under torch.profiler: device kernels, device busy time, the wall
     time by CUDA events around it, and the idle share 1 − busy/wall; plus
-    the median unprofiled time of 10 such steps."""
+    the median unprofiled time of 10 such steps and the idle share against
+    it (the profiler's own host work is not in it).  The estimator's prior
+    is restored afterwards."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from vins_tpu_torch.estimator.graph import clone_prior
+
     blob = est._pack_blob(marg_old)
+    saved = clone_prior(est.prior)
+    replays0 = est._graph.replays if est._graph is not None else 0
     times = []
     for _ in range(12):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        est._fetch(est.run_step(blob, marg_old))
+        est.fetch(est.dispatch(blob, marg_old))
         times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
-        est._fetch(est.run_step(blob, marg_old))
+        est.fetch(est.dispatch(blob, marg_old))
         end.record()
         end.synchronize()
+    est.prior = saved
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time for e in kernels) / 1e3
     wall = start.elapsed_time(end)
@@ -717,9 +737,12 @@ def profile_step(est, marg_old: bool = True):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return dict(marg_old=marg_old, step_ms_median=float(np.median(times[2:])),
+    graphed = est._graph is not None
+    return dict(graphed=graphed, marg_old=marg_old, step_ms_median=float(np.median(times[2:])),
+                graph_replays_per_step=((est._graph.replays - replays0) / 13 if graphed else 0),
                 device_kernels=len(kernels), device_busy_ms=busy, wall_ms_profiled=wall,
                 idle_share=1.0 - busy / wall,
+                idle_share_unprofiled=1.0 - busy / float(np.median(times[2:])),
                 top_kernels_ms=[[n[:80], round(v, 4)] for n, v in top])
 
 
@@ -776,6 +799,9 @@ def phase_pipeline(dev):
     check(est.failures == 0, f"phase 5: {est.failures} estimator failures")
     check(launches == {"lk_pyramid": n - 1, "lk_level": 0},
           f"phase 5: launches {launches}, expected lk_pyramid once per tracked frame ({n - 1})")
+    steps = len(kinds) - i0
+    check(est._graph is not None and est._graph.replays == steps,
+          f"phase 5: {est._graph and est._graph.replays} graph replays for {steps} VIO steps")
     ate = proxy.ate_rmse_tum(pipe.trajectory, run.t, run.p_gt)
     check(np.isfinite(ate) and ate < LIMITS["ate_max_m"],
           f"phase 5: ATE {ate} m ≥ {LIMITS['ate_max_m']} m")
@@ -811,7 +837,263 @@ def phase_pipeline(dev):
         f"{init['ms']:.1f} ms (estimator {init['est_ms']:.1f} ms); whole run {run_s:.1f} s")
     summary["vio_step_profile"] = profile_step(est)
     log("phase 5: one VIO step " + json.dumps(summary["vio_step_profile"]))
-    return launches, summary
+    return launches, summary, inp, pipe, kinds
+
+
+SPANS = ("frontend", "front_fetch", "estimator", "est_fetch")
+
+
+def feed(pipe, inp, shift: float = 0.0):
+    """`run_proxy`'s feed (the IMU since the last frame, then the frame),
+    times shifted by `shift`, each `process_image` call timed on the host
+    clock with a device sync at its end and split by the tracer's spans.
+    Returns the record of every call: the kinds of the events it returned
+    (an overlapped call returns earlier frames' events), ms, and each
+    span's ms in it; and the run's seconds."""
+    import torch
+
+    stats, recs = pipe.tracer.stats, []
+    t_run = time.perf_counter()
+    for fi, t in enumerate(inp.t):
+        if fi > 0:
+            for ti, a, w in zip(inp.imu_t[fi - 1], inp.acc[fi - 1], inp.gyr[fi - 1]):
+                pipe.process_imu(float(ti) + shift, a, w)
+        n0 = {k: stats.count(k) for k in SPANS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = pipe.process_image(inp.frames[fi], float(t) + shift)
+        torch.cuda.synchronize()
+        rec = dict(kind=ev.get("kind"), ms=(time.perf_counter() - t0) * 1e3)
+        rec.update({k: stats.last(k) if stats.count(k) > n0[k] else 0.0 for k in SPANS})
+        recs.append(rec)
+    flushed = pipe.flush_frames()
+    return recs, [e["kind"] for e in flushed], time.perf_counter() - t_run
+
+
+def per_vio_frame(recs) -> dict:
+    """Medians over the calls that returned a "vio" event."""
+    vio = [r for r in recs if r["kind"] == "vio"]
+    return {k: float(np.median([r[k] for r in vio])) for k in ("ms",) + SPANS} | {"n": len(vio)}
+
+
+def kinds_of(recs, flushed) -> list:
+    return [r["kind"] for r in recs if r["kind"]] + flushed
+
+
+def max_dp(ta, tb) -> float:
+    """Largest |Δp| between two trajectories of the same frames."""
+    check(len(ta) == len(tb) and all(a[0] == b[0] for a, b in zip(ta, tb)),
+          f"trajectories of other frames ({len(ta)} and {len(tb)} poses)")
+    return float(max(np.abs(a[1] - b[1]).max() for a, b in zip(ta, tb)))
+
+
+def graph_vs_eager(est, tag: str) -> float:
+    """The graphed step against the eager step (`packed_step`) on the
+    estimator's current window and prior, for both values of marg_old: the
+    packed result (state, inverse depths, costs) and the output prior to
+    ≤ 1e-9 relative (max |Δ| over max |eager| of each group).  The prior is
+    restored afterwards.  Returns the largest relative difference."""
+    import torch
+
+    from vins_tpu_torch.estimator.graph import clone_prior
+
+    graph, worst = est._graph, 0.0
+    saved = clone_prior(est.prior)
+    for marg_old in (True, False):
+        blob = est._pack_blob(marg_old)
+        eager = est.packed_step(torch.from_numpy(blob).to(est.device), clone_prior(saved),
+                                marg_old)
+        out_e, prior_e = est._pack_result(eager), eager.prior
+        est.prior = saved
+        est.fetch(est.dispatch(blob, marg_old))
+        groups = [("result", out_e, graph.out), ("prior J", prior_e.J, graph.prior.J),
+                  ("prior r0", prior_e.r0, graph.prior.r0),
+                  ("prior lin", torch.cat([x.reshape(-1) for x in prior_e.lin]),
+                   torch.cat([x.reshape(-1) for x in graph.prior.lin])),
+                  ("prior valid", prior_e.valid.double(), graph.prior.valid.double())]
+        for name, e, g in groups:
+            rel = float((e - g).abs().max() / e.abs().max().clamp_min(1e-300))
+            check(rel <= 1e-9, f"{tag}: graph against eager, marg_old={marg_old}, {name}: "
+                               f"relative difference {rel:.3e} > 1e-9")
+            worst = max(worst, rel)
+    est.prior = saved
+    return worst
+
+
+def step_turns(ests: dict, rounds: int = 10) -> dict:
+    """Median wall time of one VIO step (upload, step, result fetch) of
+    each estimator on its current window, in turns, the order reversed
+    every other round; each estimator's prior is restored."""
+    import torch
+
+    from vins_tpu_torch.estimator.graph import clone_prior
+
+    blobs = {k: e._pack_blob(True) for k, e in ests.items()}
+    saved = {k: clone_prior(e.prior) for k, e in ests.items()}
+    times = {k: [] for k in ests}
+    names = list(ests)
+    for i in range(rounds + 2):
+        for k in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ests[k].fetch(ests[k].dispatch(blobs[k], True))
+            if i >= 2:
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    for k, e in ests.items():
+        e.prior = saved[k]
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def linalg_kernels(dev) -> dict:
+    """The device kernels each linear-algebra call of the VIO step launches,
+    at the step's float64 shapes, under the profiler (so a kernel of the
+    step's profile can be traced to its library call), and the linear
+    algebra library PyTorch prefers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = 15 * 11 + 7  # dim_x of the 11-frame window
+    A = torch.randn((2 * n, n + 1), generator=gen, dtype=torch.float64, device=dev)
+    S = A[:, :n].T @ A[:, :n]
+    b = A[:n, :1].contiguous()
+    calls = {"linalg.qr(mode='r')": lambda: torch.linalg.qr(A, mode="r"),
+             "linalg.cholesky_ex": lambda: torch.linalg.cholesky_ex(S),
+             "linalg.solve_triangular": lambda: torch.linalg.solve_triangular(S, b, upper=False)}
+    out = {"preferred_linalg_library": str(torch.backends.cuda.preferred_linalg_library())}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out[name] = sorted({e.name[:60] for e in prof.events()
+                            if e.device_type == DeviceType.CUDA})
+    return out
+
+
+def phase_modes(dev, inp, pipe5, ref_kinds):
+    """6a-6c. The main path in its other modes on phase 5's inputs: serial
+    with the eager step (timing, and its trajectory beside phase 5's),
+    overlapped with the graphed step (the same events as phase 5, max |Δp| ≤
+    1e-6 m), the graphed step against the eager one on the same blob and
+    prior; then a stream restart mid-run in the overlapped pipeline and the
+    same comparison after it."""
+    from vins_tpu_torch.sim import proxy
+
+    out = {}
+    ref = list(pipe5.trajectory)
+
+    eager = proxy.make_pipeline(device=dev, cuda_graph=False)
+    recs, flushed, run_s = feed(eager, inp)
+    check(kinds_of(recs, flushed) == ref_kinds, "phase 6: the eager serial run's events differ")
+    out["serial_eager"] = per_vio_frame(recs) | {"run_s": run_s}
+    out["serial_eager_vs_graph_max_dp_m"] = max_dp(ref, eager.trajectory)
+
+    over = proxy.make_pipeline(device=dev, overlap=True)
+    over.estimator.sync_check = True
+    recs, flushed, run_s = feed(over, inp)
+    check(kinds_of(recs, flushed) == ref_kinds,
+          f"phase 6: overlapped events differ from serial: {kinds_of(recs, flushed)}")
+    dp = max_dp(ref, over.trajectory)
+    check(dp <= 1e-6, f"phase 6: overlapped trajectory max|Δp| {dp} m > 1e-6 m")
+    graph = over.estimator._graph
+    steps = sum(k in ("initialized", "vio") for k in ref_kinds)
+    check(graph.replays == steps, f"phase 6: {graph.replays} graph replays for {steps} steps")
+    out["overlap_graph"] = per_vio_frame(recs) | {"run_s": run_s}
+    out["overlap_vs_serial_max_dp_m"] = dp
+    log(f"phase 6: overlapped (graph) against serial (graph): the same {len(ref_kinds)} events, "
+        f"max|Δp| {dp:.3e} m over {len(ref)} poses; serial eager against serial graph: max|Δp| "
+        f"{out['serial_eager_vs_graph_max_dp_m']:.3e} m; {graph.replays} graph replays for "
+        f"{steps} VIO steps")
+
+    out["linalg_kernels"] = linalg_kernels(dev)
+    log("phase 6: linear algebra kernels " + json.dumps(out["linalg_kernels"]))
+    out["graph_vs_eager_rel"] = graph_vs_eager(over.estimator, "phase 6")
+    out["step_ms_in_turns"] = step_turns({"graph": over.estimator, "eager": eager.estimator})
+    out["step_profile_eager"] = profile_step(eager.estimator)
+    log(f"phase 6: graphed step against eager on the same blob and prior: max relative "
+        f"difference {out['graph_vs_eager_rel']:.3e}; one VIO step in turns: graph "
+        f"{out['step_ms_in_turns']['graph']:.2f} ms, eager {out['step_ms_in_turns']['eager']:.2f}"
+        f" ms; eager step " + json.dumps(out["step_profile_eager"]))
+
+    # a stream restart mid-run: the same 10 s again, 20 s later
+    seq, graphs = over.sequence, dict(graph.graphs)
+    replays0 = graph.replays
+    recs, flushed, _ = feed(over, inp, shift=20.0)
+    kinds = kinds_of(recs, flushed)
+    check(over.sequence == seq + 1, "phase 6: the gap did not restart the stream")
+    check(graph.graphs == graphs, "phase 6: the restart captured the step again")
+    check("initialized" in kinds and all(k == "vio" for k in kinds[kinds.index("initialized")
+                                                                   + 1:]),
+          f"phase 6: after the restart: {kinds}")
+    check(over.estimator.failures == 0, "phase 6: failures after the restart")
+    steps = sum(k in ("initialized", "vio") for k in kinds)
+    check(graph.replays - replays0 == steps, "phase 6: graph replays after the restart")
+    rel = graph_vs_eager(over.estimator, "phase 6, after the restart")
+    out["restart"] = dict(init_published_index=kinds.index("initialized"), vio_steps=steps,
+                          graph_vs_eager_rel=rel)
+    log(f"phase 6: restart mid-run: sequence {seq} -> {over.sequence}, the prior reset in place "
+        f"(the same 2 graphs), re-initialized, {steps} graphed steps, 0 failures; graph against "
+        f"eager after it: max relative difference {rel:.3e}")
+    return out
+
+
+def phase_replay(dev):
+    """6d. The EuRoC-layout replay: the 10 s tree written by the port's
+    writer into a temporary directory, replayed through `run_euroc.replay`
+    on the card, overlapped, the step graphed; the three asserts of
+    tests/test_euroc_replay.py and one `lk_pyramid` launch per tracked
+    frame."""
+    import tempfile
+
+    import torch
+
+    from vins_tpu_torch.frontend.klt_cuda import lk_level, lk_pyramid
+    from vins_tpu_torch.io.euroc import load_groundtruth
+    from vins_tpu_torch.run_euroc import replay
+    from vins_tpu_torch.sim import proxy
+    from vins_tpu_torch.sim.euroc_writer import write_euroc_dataset
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        info = write_euroc_dataset(root, duration=PROXY_SECONDS, device=dev)
+        write_s = time.perf_counter() - t0
+        pipe = proxy.make_pipeline(device=dev, overlap=True)
+        pipe.estimator.sync_check = True
+        calls = []
+        process = pipe.process_image
+
+        def counted(img, t, gumbel=None):
+            calls.append(t)
+            return process(img, t, gumbel)
+
+        pipe.process_image = counted
+        lk_pyramid.launches = lk_level.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay(root, pipe.cfg, None, pipe=pipe, progress_every=0, device=dev)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        gt = load_groundtruth(root)
+    n = info["n_frames"]
+    ate = proxy.ate_rmse_tum(pipe.trajectory, gt.t, gt.p)
+    launches = {"lk_pyramid": lk_pyramid.launches, "lk_level": lk_level.launches}
+    log(f"phase 6: replay of the {n}-frame tree (written in {write_s:.2f} s): {len(calls)} frames "
+        f"through process_image in {replay_s:.2f} s ({len(calls) / replay_s:.2f} frames/s), "
+        f"{len(pipe.trajectory)} poses, {pipe.estimator.failures} failures, ATE {ate:.4f} m, "
+        f"launches {launches}, {pipe.estimator._graph.replays} graph replays")
+    check(len(pipe.trajectory) >= n - 12,
+          f"phase 6: replay: {len(pipe.trajectory)} poses < {n} frames - 12")
+    check(pipe.estimator.failures == 0, "phase 6: replay: estimator failures")
+    check(np.isfinite(ate) and ate < LIMITS["ate_max_m"], f"phase 6: replay: ATE {ate} m")
+    check(launches == {"lk_pyramid": len(calls) - 1, "lk_level": 0},
+          f"phase 6: replay: launches {launches} for {len(calls)} frames")
+    return launches, dict(frames=n, processed=len(calls), poses=len(pipe.trajectory),
+                          failures=pipe.estimator.failures, ate_se3_m=ate, write_s=write_s,
+                          replay_s=replay_s, frames_per_s=len(calls) / replay_s,
+                          graph_replays=pipe.estimator._graph.replays)
 
 
 def main() -> int:
@@ -820,11 +1102,11 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
-    ap.add_argument("--phases", default="2,3,4,5",
+    ap.add_argument("--phases", default="2,3,4,5,6",
                     help="phases after the build to run; any other set than the default "
                          "prints no result lines")
     phases = {int(x) for x in ap.parse_args().phases.split(",")}
-    full = phases == {2, 3, 4, 5}
+    full = phases == {2, 3, 4, 5, 6}
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -880,8 +1162,16 @@ def main() -> int:
 
     # ---- 5. the main path end to end ---------------------------------------------
     if 5 in phases:
-        launches5, pipeline = phase_pipeline(dev)
+        launches5, pipeline, inp5, pipe5, kinds5 = phase_pipeline(dev)
         log("phase 5: " + json.dumps(pipeline))
+
+    # ---- 6. the other modes, a restart, the replay ---------------------------------
+    if 6 in phases:
+        check(5 in phases, "phase 6 runs on phase 5's inputs: ask for both")
+        modes = phase_modes(dev, inp5, pipe5, kinds5)
+        log("phase 6: " + json.dumps(modes))
+        launches6, replayed = phase_replay(dev)
+        log("phase 6: replay " + json.dumps(replayed))
     if not full:
         return 0
 
@@ -891,14 +1181,14 @@ def main() -> int:
     kernels = [
         dict(name="lk_pyramid", source="vins_tpu_torch/csrc/lk_pyramid.cu",
              launches=launches5["lk_pyramid"], max_abs_err=worst["lk_pyramid"],
-             launches_front_end=launches["lk_pyramid"],
+             launches_front_end=launches["lk_pyramid"], launches_replay=launches6["lk_pyramid"],
              ms=t["lk_pyramid"], **common, launch_floor_ms=t["launch_floor"],
              warps_per_block=WARPS_PER_BLOCK,
              ms_by_warps_per_block={w: t[f"lk_pyramid_w{w}"] for w in WARPS},
              per_level=levels),
         dict(name="lk_level", source="vins_tpu_torch/csrc/lk_level.cu",
              launches=launches5["lk_level"], max_abs_err=worst["lk_level"],
-             launches_front_end=launches["lk_level"],
+             launches_front_end=launches["lk_level"], launches_replay=launches6["lk_level"],
              ms=t["lk_level_x3"], **common, path_with_glue_ms=t["lk_level_path"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,10 +7,17 @@ device in the initializer and the per-keyframe `vio_step`; this class keeps
 the buffers (numpy), the feature DB, sliding and failure recovery.
 
 Per keyframe the device sees one host→device copy (the packed blob, through
-a pinned buffer) and gives one device→host copy (the packed result); the
-marginalization prior stays on the device.  With `sync_check` set, the step
-between the two copies runs under CUDA sync-debug mode "error", so a host
-sync inside it raises.
+a pinned buffer) and gives one device→host copy (the packed result, into a
+pinned buffer); the marginalization prior stays on the device.  A step is
+split in two: `dispatch` uploads the blob, runs the step and starts the
+result copy; `complete` waits for the copy and runs the host half
+(`post_step`).  The serial path runs one after the other
+(`_solve_and_slide`); the overlapped pipeline runs other work between them.
+On CUDA the step is a CUDA graph (`graph.StepGraph`), replayed once per
+step; `cuda_graph=False` keeps it eager, for comparisons.  With
+`sync_check` set, everything from the upload to the start of the result
+copy runs under CUDA sync-debug mode "error", so a host sync inside it
+raises.
 
 Wire protocol as the reference nodes:
   * `process_imu(dt, acc, gyr)`   ← Estimator::processIMU (estimator.cpp:84-118)
@@ -19,6 +26,7 @@ Wire protocol as the reference nodes:
 from __future__ import annotations
 
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,6 +40,7 @@ from ..init.relative_pose import solve_relative_pose
 from ..solver.gn import SolverOptions
 from ..solver.problem import FeatureObs, Layout, Prior, WindowState
 from .feature_db import FeatureDB
+from .graph import StepGraph
 from .initializer import Initializer
 from .propagator import midpoint_propagate_batch
 from .step import StepResult, make_vio_step
@@ -51,9 +60,18 @@ def relative_pose_4dof(p_old_b, q_old_b, p_cur_b, q_cur_b):
     return rel_t, rel_q, rel_yaw
 
 
+class PendingStep(NamedTuple):
+    """A dispatched step whose result is on its way to the host."""
+
+    host: torch.Tensor              # the packed result (pinned on CUDA)
+    event: torch.cuda.Event | None  # recorded after the copy into `host`
+    marg_old: bool
+
+
 class Estimator:
     def __init__(self, cfg: VinsConfig, imu_buf_len: int = 256, dtype=torch.float64,
-                 aux_frames: int = 64, aux_imu_len: int = 64, device="cuda"):
+                 aux_frames: int = 64, aux_imu_len: int = 64, device="cuda",
+                 cuda_graph: bool = True):
         self.cfg = cfg
         self.dtype = dtype
         self.device = torch.device(device)
@@ -83,7 +101,17 @@ class Estimator:
         spec = self._blob_spec()
         sizes = [int(np.prod(shp)) if shp else 1 for _, shp in spec]
         self._offs = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+        # pinned staging buffers, each guarded by an event: the host writes
+        # the upload buffer only after the previous upload has read it, and
+        # reads the result buffer only after its copy has landed
         self._pinned = None
+        self._upload_done = None
+        self._host_out = None
+        self._result_unread = False
+        self._graph = (StepGraph(self.packed_step, self._pack_result, self._offs[-1],
+                                 Prior.empty(self.layout, dtype, self.device))
+                       if cuda_graph and self.device.type == "cuda" else None)
+        self._prior = None if self._graph is None else self._graph.prior
         self.initializer = Initializer(self.noise, cfg.g_norm, cfg.focal, dtype, self.device)
 
         # extrinsics (body←camera)
@@ -140,6 +168,7 @@ class Estimator:
 
         self.prior = Prior.empty(self.layout, self.dtype, self.device)
         self.db.clear()
+        self._result_unread = False  # a dispatched step's result is abandoned
 
         self.last_p = np.zeros(3)
         self.last_cost = 0.0
@@ -148,6 +177,19 @@ class Estimator:
         self._relo = None
         self._post_init_costs: list = []
         self.init_rejected_by_health = getattr(self, "init_rejected_by_health", 0)
+
+    @property
+    def prior(self) -> Prior:
+        return self._prior
+
+    @prior.setter
+    def prior(self, p: Prior):
+        """With the step graphed, the graphs read the prior at fixed
+        addresses: a new prior is copied into them, not rebound."""
+        if self._graph is None:
+            self._prior = p
+        else:
+            self._graph.load_prior(p)
 
     # -------------------------------------------------------------------- IMU
 
@@ -307,50 +349,101 @@ class Estimator:
                           f["last_p"], f["relo_pq"][:3], f["relo_pq"][3:7], f["relo_pt"],
                           f["relo_valid"] > 0.5, f["relo_on"])
 
-    def _upload(self, blob: np.ndarray) -> torch.Tensor:
-        """The blob on the device: through a pinned buffer and a
-        non-blocking copy on CUDA (the previous step's result fetch has
-        finished with the buffer)."""
-        if self.device.type != "cuda":
-            return torch.from_numpy(blob).to(self.device)
+    def _stage(self, blob: np.ndarray):
+        """Host half of the upload: the blob into the pinned buffer, once
+        the previous upload has read it."""
         if self._pinned is None or self._pinned.numel() != blob.size:
             self._pinned = torch.empty(blob.size, dtype=self.dtype, pin_memory=True)
+        elif self._upload_done is not None:
+            self._upload_done.synchronize()
         self._pinned.numpy()[:] = blob
-        return self._pinned.to(self.device, non_blocking=True)
 
-    @staticmethod
-    def _result_fields(res: StepResult):
+    def _copy_in(self, dst: torch.Tensor | None = None) -> torch.Tensor:
+        """Device half of the upload: a non-blocking copy of the pinned
+        buffer into `dst` (a new tensor if None); an event marks its end."""
+        dst = torch.empty_like(self._pinned, device=self.device) if dst is None else dst
+        dst.copy_(self._pinned, non_blocking=True)
+        self._upload_done = torch.cuda.Event()
+        self._upload_done.record()
+        return dst
+
+    def _result_spec(self):
+        """(shape, is_bool) of each StepResult field packed into the result."""
+        F, L = self.F, self.L
+        return [((F, 3), False), ((F, 4), False), ((F, 3), False), ((F, 3), False),
+                ((F, 3), False), ((3,), False), ((4,), False), ((), False), ((L,), False),
+                ((), False), ((), False), ((), True), ((), True), ((3,), False), ((4,), False)]
+
+    def _pack_result(self, res: StepResult) -> torch.Tensor:
+        """Every field of a StepResult but the prior, in one flat tensor."""
         s = res.state
-        return [s.p, s.q, s.v, s.ba, s.bg, s.tic, s.qic, s.td, res.inv_depth, res.cost0,
-                res.cost, res.fail_imu, res.fail_jump, res.relo_p, res.relo_q]
+        fields = [s.p, s.q, s.v, s.ba, s.bg, s.tic, s.qic, s.td, res.inv_depth, res.cost0,
+                  res.cost, res.fail_imu, res.fail_jump, res.relo_p, res.relo_q]
+        return torch.cat([x.reshape(-1).to(self.dtype) for x in fields])
 
-    def _fetch(self, res: StepResult) -> StepResult:
-        """One device→host copy of every field but the prior; returns the
-        result with numpy fields and prior None."""
-        fields = self._result_fields(res)
-        flat = torch.cat([x.reshape(-1).to(self.dtype) for x in fields]).cpu().numpy()
+    def _unpack_result(self, flat: np.ndarray) -> StepResult:
+        """A packed result (numpy) → StepResult with numpy fields (copies)
+        and prior None."""
         out, o = [], 0
-        for x in fields:
-            n = x.numel()
-            a = flat[o:o + n].reshape(tuple(x.shape))
-            out.append(a > 0.5 if x.dtype == torch.bool else a)
+        for shp, is_bool in self._result_spec():
+            n = int(np.prod(shp)) if shp else 1
+            a = flat[o:o + n].reshape(shp).copy()
+            out.append(a > 0.5 if is_bool else a)
             o += n
         st = WindowState(*out[:8])
         return StepResult(state=st, inv_depth=out[8], prior=None, cost0=out[9], cost=out[10],
                           fail_imu=out[11], fail_jump=out[12], relo_p=out[13], relo_q=out[14])
 
-    def run_step(self, blob: np.ndarray, marg_old: bool) -> StepResult:
-        """Upload the blob, run the step, leave the result on the device.
-        With `sync_check` on CUDA, from the upload to here runs under sync
-        debug mode "error"."""
-        check = self.sync_check and self.device.type == "cuda"
+    def dispatch(self, blob: np.ndarray, marg_old: bool) -> PendingStep:
+        """Upload the blob, run the step (a graph replay on CUDA), leave the
+        new prior on the device and start the copy of the result to the
+        host.  With `sync_check` on CUDA, from the upload to here runs under
+        sync-debug mode "error"."""
+        if self._result_unread:
+            raise RuntimeError("the previous step's result was not completed")
+        if self.device.type != "cuda":
+            res = self.packed_step(torch.from_numpy(blob).to(self.device), self.prior, marg_old)
+            self.prior = res.prior
+            return PendingStep(self._pack_result(res), None, marg_old)
+
+        self._stage(blob)
+        graph = self._graph
+        if graph is not None and not graph.captured:
+            self._copy_in(graph.blob)
+            graph.capture()  # synchronizes: outside the sync check
+        check = self.sync_check
         if check:
             torch.cuda.set_sync_debug_mode("error")
         try:
-            return self.packed_step(self._upload(blob), self.prior, marg_old)
+            if graph is None:
+                res = self.packed_step(self._copy_in(), self.prior, marg_old)
+                self.prior = res.prior
+                out = self._pack_result(res)
+            else:
+                self._copy_in(graph.blob)
+                out = graph.replay(marg_old)
+            if self._host_out is None:
+                self._host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self._host_out.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
         finally:
             if check:
                 torch.cuda.set_sync_debug_mode("default")
+        self._result_unread = True
+        return PendingStep(self._host_out, event, marg_old)
+
+    def fetch(self, pending: PendingStep) -> StepResult:
+        """Wait for a dispatched step's result and unpack it."""
+        if pending.event is not None:
+            pending.event.synchronize()
+        res = self._unpack_result(pending.host.numpy())
+        self._result_unread = False
+        return res
+
+    def complete(self, pending: PendingStep, failure_check: bool) -> dict:
+        """The host half of a dispatched step: fetch, then `post_step`."""
+        return self.post_step(self.fetch(pending), pending.marg_old, failure_check)
 
     def _pack_blob(self, marg_old: bool) -> np.ndarray:
         dt = self._np_dtype
@@ -429,14 +522,17 @@ class Estimator:
         self.timestamps[col] = t
         return self._pack_blob(marg_old), marg_old
 
-    def _solve_and_slide(self, marg_old: bool, failure_check: bool) -> dict:
-        res = self.run_step(self._pack_blob(marg_old), marg_old)
-        return self.post_step(self._fetch(res), res.prior, marg_old, failure_check)
+    def dispatch_step(self, ids, pts, vels, uvs, t: float, toffs=0.0) -> PendingStep:
+        """A NON_LINEAR frame up to the device step: `pre_step`, then
+        `dispatch`; `complete` finishes it."""
+        return self.dispatch(*self.pre_step(ids, pts, vels, uvs, t, toffs=toffs))
 
-    def post_step(self, res: StepResult, prior_dev, marg_old: bool,
-                  failure_check: bool) -> dict:
-        """Host half AFTER the device solve (`res` fetched, the prior still
-        on the device; prior_dev=None leaves self.prior alone)."""
+    def _solve_and_slide(self, marg_old: bool, failure_check: bool) -> dict:
+        return self.complete(self.dispatch(self._pack_blob(marg_old), marg_old), failure_check)
+
+    def post_step(self, res: StepResult, marg_old: bool, failure_check: bool) -> dict:
+        """Host half AFTER the device solve (`res` fetched; the new prior is
+        already on the device)."""
         if failure_check:
             few_feats = self.db.count_tracked(self.F - 1) < 2
             if bool(res.fail_imu) or bool(res.fail_jump) or few_feats:
@@ -450,8 +546,6 @@ class Estimator:
                 return {"ok": False, "reason": "bad init (cost health)"}
 
         self._adopt_state(res.state)
-        if prior_dev is not None:
-            self.prior = prior_dev
         self.db.remove_failures(np.asarray(res.inv_depth))
         self.last_cost = float(res.cost)
         relo_out = self._relo_result(res)  # pre-slide frame indexing

@@ -1,6 +1,6 @@
-"""Full-system pipeline: front-end → estimator (serial mode, no loop closure).
+"""Full-system pipeline: front-end → estimator (loop closure off).
 
-PyTorch counterpart of the serial path of `vins_tpu/pipeline.py`, the
+PyTorch counterpart of `vins_tpu/pipeline.py` without the pose graph, the
 reference's roslaunch graph (vins_estimator/launch/euroc.launch) as direct
 calls:
 
@@ -11,8 +11,13 @@ calls:
     estimator_node.cpp:179-198),
   * IMU-rate propagation output (estimator_node.cpp:42-96).
 
-Loop closure (the pose graph) and the overlapped mode are not ported yet:
-asking for either raises NotImplementedError.
+Two modes, with the same estimator inputs in the same order and so the same
+trajectory: serial, where each published frame's front-end result is
+fetched and its estimator step completed before `process_image` returns,
+and overlapped (`overlap=True`), where the estimator runs one published
+frame behind the front-end (see `_process_image_overlapped`).  Loop closure
+(the pose graph) is not ported yet: asking for it raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ def circular_fov_mask(h: int, w: int, margin: int = 4) -> np.ndarray:
 class Pipeline:
     def __init__(self, cfg: VinsConfig, camera, imu_buf_len: int = 256,
                  loop_closure: bool | None = None, dtype=torch.float64,
-                 overlap: bool | None = None, device="cuda"):
+                 overlap: bool | None = None, device="cuda", cuda_graph: bool = True):
         self.cfg = cfg
         self.camera = camera
         self.device = torch.device(device)
@@ -49,16 +54,28 @@ class Pipeline:
                 "loop closure is not ported yet (ROADMAP Queue 1 item 9): "
                 "pass loop_closure=False")
         self.overlap = bool(cfg.overlap) if overlap is None else bool(overlap)
-        if self.overlap:
-            raise NotImplementedError(
-                "the overlapped pipeline is not ported yet (ROADMAP Queue 1 item 8, "
-                "overlap mode): pass overlap=False")
         mask = circular_fov_mask(cfg.image_height, cfg.image_width) if cfg.fisheye else None
         self.tracker = FeatureTracker(
             camera, max_cnt=cfg.max_cnt, min_dist=cfg.min_dist, f_threshold=cfg.f_threshold,
             equalize=cfg.equalize, focal=cfg.focal, mask=mask, device=self.device)
-        self.estimator = Estimator(cfg, imu_buf_len=imu_buf_len, dtype=dtype, device=self.device)
+        self.estimator = Estimator(cfg, imu_buf_len=imu_buf_len, dtype=dtype, device=self.device,
+                                   cuda_graph=cuda_graph)
         self.propagator = ImuPropagator(cfg.g_norm)
+
+        # Overlapped mode: the estimator consumes the PREVIOUS published
+        # frame's features while the current frame's front-end runs on the
+        # device (the reference runs the tracker and the estimator as
+        # separate processes).  Per published frame:
+        #   1. complete the estimator step dispatched last call (its result
+        #      copy has usually landed by now),
+        #   2. fetch the pending front blob (its copy was started last call)
+        #      and dispatch its estimator step, before the new front step so
+        #      that its result copy does not queue behind it,
+        #   3. dispatch the current frame's front step and start its copy.
+        self._pending = None      # (t, front blob handle) not yet consumed
+        self._imu_backlog = []    # (t, dt, acc, gyr) since the pending frame
+        self._est_pending = None  # (PendingStep, t) dispatched, not completed
+        self.sequence = 1
 
         self.freq = cfg.freq
         self._pub_count = 0
@@ -66,14 +83,22 @@ class Pipeline:
         self._last_image_time = None
         self.trajectory = []  # (t, p, q) VIO outputs
         # per-stage wall-clock stats (the reference's TicToc/printStatistics);
-        # on CUDA every span waits for the device before it stops
-        self.tracer = Tracer(sync=torch.cuda.synchronize if self.device.type == "cuda" else None)
+        # serial on CUDA, every span waits for the device before it stops;
+        # overlapped, spans time the host (a wait would undo the overlap),
+        # and "front_fetch" and "est_fetch" show where it blocks
+        sync = self.device.type == "cuda" and not self.overlap
+        self.tracer = Tracer(sync=torch.cuda.synchronize if sync else None)
 
     # ------------------------------------------------------------------ IMU
 
     def process_imu(self, t: float, acc, gyr):
         dt = t - self.propagator.t if self.propagator.t is not None else 0.0
-        self.estimator.process_imu(dt, acc, gyr)
+        if self.overlap:
+            # the estimator's input runs one published frame late; the
+            # IMU-rate output (propagator) stays real-time
+            self._imu_backlog.append((t, dt, acc, gyr))
+        else:
+            self.estimator.process_imu(dt, acc, gyr)
         return self.propagator.predict(t, acc, gyr)
 
     # ---------------------------------------------------------------- image
@@ -96,6 +121,9 @@ class Pipeline:
             self._first_image_time = t
             self._pub_count = 0
 
+        if self.overlap:
+            return self._process_image_overlapped(img, t, publish, gumbel)
+
         with self.tracer.span("frontend"):
             feats = self.tracker.read_image(img, t, publish=publish, gumbel=gumbel)
         out = {"published": publish}
@@ -104,6 +132,68 @@ class Pipeline:
         self._pub_count += 1
         out.update(self._estimator_and_downstream(feats, t))
         return out
+
+    def _process_image_overlapped(self, img, t: float, publish: bool, gumbel) -> dict:
+        """Overlapped frame path (see __init__): consume the pending front
+        frame through the estimator first, then dispatch this frame's front
+        step.  The events returned are those of earlier frames."""
+        out = {"published": publish}
+        out.update(self._consume_pending())
+        with self.tracer.span("frontend"):
+            blob = self.tracker.read_image_device(img, t, publish=publish, gumbel=gumbel)
+        if publish:
+            self._pub_count += 1
+            self._pending = (t, blob)
+        return out
+
+    def _consume_pending(self) -> dict:
+        # complete the step dispatched last call: its post_step slides the
+        # window before this frame's pre_step
+        out = self._complete_est()
+        if self._pending is None:
+            # the backlog belongs to the next published frame's interval
+            return out
+        t_prev, blob = self._pending
+        self._pending = None
+        # samples up to the pending frame close its interval; later ones
+        # wait for the next published frame
+        before = [s for s in self._imu_backlog if s[0] <= t_prev + 1e-12]
+        self._imu_backlog = [s for s in self._imu_backlog if s[0] > t_prev + 1e-12]
+        for _, dt, acc, gyr in before:
+            self.estimator.process_imu(dt, acc, gyr)
+        with self.tracer.span("front_fetch"):
+            feats = self.tracker.adopt_blob(blob)
+        est = self.estimator
+        if est.solver_flag == NON_LINEAR:
+            with self.tracer.span("estimator"):
+                pending = est.dispatch_step(feats.ids, feats.pts, feats.vel, feats.uv, t_prev,
+                                            toffs=self._toffs(feats))
+            self._est_pending = (pending, t_prev)
+        else:
+            # INITIAL: the synchronous per-frame path
+            out = {**out, **self._estimator_and_downstream(feats, t_prev)}
+        return out
+
+    def _complete_est(self) -> dict:
+        if self._est_pending is None:
+            return {}
+        pending, t = self._est_pending
+        self._est_pending = None
+        est = self.estimator
+        with self.tracer.span("est_fetch"):
+            res = est.fetch(pending)
+        ev = est.post_step(res, pending.marg_old, failure_check=True)
+        ev["kind"] = "vio" if ev.get("ok", True) else "reboot"
+        self._downstream(ev, t)
+        return ev
+
+    def flush_frames(self) -> list:
+        """Overlapped mode: run the pending frame through the estimator and
+        complete its step (end of stream, before scoring trajectories).
+        Returns the events this produces."""
+        if not self.overlap:
+            return []
+        return [ev for ev in (self._consume_pending(), self._complete_est()) if ev]
 
     def _estimator_and_downstream(self, feats, t: float) -> dict:
         with self.tracer.span("estimator"):
@@ -135,11 +225,32 @@ class Pipeline:
 
     # ---------------------------------------------------------------- admin
 
+    def pg_join(self):
+        """End of stream.  With no pose graph this only drains the
+        overlapped mode's pending frame."""
+        self.flush_frames()
+
+    def shutdown(self):
+        """Stop the pose-graph worker: there is none without loop closure."""
+
     def _restart(self):
-        """Stream fault: reboot the front-end and the estimator (the
+        """Stream fault: reboot the front-end and the estimator, drop the
+        overlapped mode's pending work and open a new sequence (the
         reference's restart topic)."""
         self.tracker.reset()
         self.estimator.clear_state()
         self.propagator.reset()
         self._first_image_time = None
         self._pub_count = 0
+        self._pending = None
+        self._est_pending = None
+        self._imu_backlog.clear()
+        self.sequence += 1
+
+    def write_trajectories(self, path_vio: str):
+        """The VIO trajectory in TUM format."""
+        from .io.euroc import write_tum
+
+        if self.trajectory:
+            t, p, q = zip(*self.trajectory)
+            write_tum(path_vio, np.asarray(t), np.stack(p), np.stack(q))

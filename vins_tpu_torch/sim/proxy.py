@@ -94,17 +94,18 @@ def track_quality(seq: Sequence, published: dict) -> dict:
                 frac_over_1px=float(np.mean(e > 1.0)))
 
 
-def make_pipeline(device="cuda") -> Pipeline:
+def make_pipeline(device="cuda", overlap: bool = False, cuda_graph: bool = True) -> Pipeline:
     """The proxy's Pipeline (vins_tpu/sim/proxy.py:53-76, loop closure off):
     752×480 EuRoC camera, 150 features, min_dist 30, publish at 10 Hz, 256
     landmark slots, the forward extrinsic, the reference yaml's noise
     densities (acc_n 0.08, gyr_n 0.004), 64-sample IMU intervals, float64
-    estimator."""
+    estimator; serial unless `overlap`."""
     cfg = VinsConfig(
         image_width=EUROC_W, image_height=EUROC_H, focal=460.0, max_cnt=150, min_dist=30,
         freq=10, max_landmarks=256, g_norm=9.81, extrinsic_R=R_IC_FORWARD,
         extrinsic_t=tuple(TIC), acc_n=0.08, gyr_n=0.004, loop_closure=False)
-    return Pipeline(cfg, euroc_camera(device=device), imu_buf_len=64, device=device)
+    return Pipeline(cfg, euroc_camera(device=device), imu_buf_len=64, device=device,
+                    overlap=overlap, cuda_graph=cuda_graph)
 
 
 class ProxyInputs(NamedTuple):
