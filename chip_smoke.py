@@ -42,16 +42,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      replay: the 10 s tree written by `sim/euroc_writer.py` into a temporary
      directory, replayed by `run_euroc.replay` on the card, overlapped,
      held to the three asserts of tests/test_euroc_replay.py and one
-     `lk_pyramid` launch per tracked frame.
+     `lk_pyramid` launch per tracked frame;
+  7. the loop back-end through `PoseGraph.add_keyframe` (TF32 off
+     asserted): keyframes rendered on the card in the JAX proxy's room go
+     through the keyframe feature function (FAST/BRIEF, two-view corner
+     depth) and into the pose graph.  7a, one session of 96 keyframes on the
+     radius-4 circuit with a drifting VIO pose: at least one verified loop
+     and no false one, a 4-DoF solve, the last keyframe's corrected error
+     under half its VIO error, `correct_pose` ≡ its pose; on 3 keyframes the
+     FAST points, BRIEF bits and database scores of the CUDA run against the
+     CPU port's.  7b, map reuse: the committed JAX map
+     (results/two_session_map.npz, 204 keyframes) loaded, then session B's
+     96 keyframes on the radius-3.7 circuit: a loop to the base, the merge,
+     the base poses bitwise unchanged after every solve, save → load
+     reproducing the graph.  In every add_keyframe the host syncs are
+     counted (one for the query, one per verification, one per solve);
+     the pieces are timed and one add_keyframe that verifies a loop is
+     profiled.
 Then it prints a `kernels` JSON line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 5,6    # build, then only phases 5-6 (no result lines)
+    python3 chip_smoke.py --phases 7      # build, then only the loop back-end
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -87,6 +105,20 @@ LIMITS = dict(mean_count_min=0.85 * 102.41, sampson_median_max=1.5 * 0.0650,
 JAX_ATE_M, JAX_INIT_PUB = 0.38646, 15
 LIMITS.update(ate_max_m=min(0.35, 2.0 * JAX_ATE_M), init_pub_max=JAX_INIT_PUB + 5)
 PROXY_SECONDS = 10.0
+
+# Phase 7: the loop back-end (PoseGraph with the port config's defaults:
+# min_loop_num 25, pg_opt_interval 2 s) on keyframes rendered on the card in
+# the JAX proxy's room, 4 per second from t = 1 s to 25 s (96 per session);
+# the VIO drift grows linearly to +2° yaw and (0.30, −0.20, 0.10) m at the
+# last keyframe (tests/test_loop.py:205-217's model).  A loop between true
+# positions more than 1.5 m or true yaws more than 30° apart is false.
+LOOP_KF_HZ, LOOP_T0, LOOP_T1 = 4.0, 1.0, 25.0
+LOOP_DRIFT_YAW_DEG, LOOP_DRIFT_T = 2.0, (0.30, -0.20, 0.10)
+FALSE_LOOP_M, FALSE_LOOP_DEG = 1.5, 30.0
+LOOP_CPU_KFS = (64, 76, 88)  # keyframes whose features the CPU port recomputes
+# session A of tools/run_two_session.py (the JAX package): 204 keyframes
+LOOP_MAP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
+                        "two_session_map.npz")
 
 
 def log(msg: str) -> None:
@@ -700,6 +732,33 @@ def phase_timing(dev, seq):
     return t, bound, by, levels, frame
 
 
+def profiled(fn, top: int = 10):
+    """fn() under torch.profiler: (its result, its device kernels, device
+    busy ms, the wall ms by CUDA events around it, the idle share 1 −
+    busy/wall, and the `top` kernels by device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e3
+    wall = start.elapsed_time(end)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return out, dict(device_kernels=len(kernels), device_busy_ms=busy, wall_ms_profiled=wall,
+                     idle_share=1.0 - busy / wall,
+                     top_kernels_ms=[[n[:80], round(v, 4)] for n, v in ranked])
+
+
 def profile_step(est, marg_old: bool = True):
     """One VIO step (upload, step, result fetch) of the estimator's current
     window under torch.profiler: device kernels, device busy time, the wall
@@ -708,8 +767,6 @@ def profile_step(est, marg_old: bool = True):
     it (the profiler's own host work is not in it).  The estimator's prior
     is restored afterwards."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from vins_tpu_torch.estimator.graph import clone_prior
 
@@ -722,28 +779,13 @@ def profile_step(est, marg_old: bool = True):
         t0 = time.perf_counter()
         est.fetch(est.dispatch(blob, marg_old))
         times.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        est.fetch(est.dispatch(blob, marg_old))
-        end.record()
-        end.synchronize()
+    _, prof = profiled(lambda: est.fetch(est.dispatch(blob, marg_old)))
     est.prior = saved
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.device_time for e in kernels) / 1e3
-    wall = start.elapsed_time(end)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     graphed = est._graph is not None
-    return dict(graphed=graphed, marg_old=marg_old, step_ms_median=float(np.median(times[2:])),
+    step_ms = float(np.median(times[2:]))
+    return dict(graphed=graphed, marg_old=marg_old, step_ms_median=step_ms,
                 graph_replays_per_step=((est._graph.replays - replays0) / 13 if graphed else 0),
-                device_kernels=len(kernels), device_busy_ms=busy, wall_ms_profiled=wall,
-                idle_share=1.0 - busy / wall,
-                idle_share_unprofiled=1.0 - busy / float(np.median(times[2:])),
-                top_kernels_ms=[[n[:80], round(v, 4)] for n, v in top])
+                **prof, idle_share_unprofiled=1.0 - prof["device_busy_ms"] / step_ms)
 
 
 def phase_pipeline(dev):
@@ -1096,17 +1138,399 @@ def phase_replay(dev):
                           graph_replays=pipe.estimator._graph.replays)
 
 
+def sync_sites(fn):
+    """fn() under CUDA sync-debug mode "warn": (its result, for each host
+    sync it made the innermost Python frames that led to it).  Nested calls
+    count their own syncs only."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = []
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            sites.append(" < ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                                    for f in traceback.extract_stack()[-2:-6:-1]))
+
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return out, sites
+
+
+class SyncCounter:
+    """The host syncs of each call of some of a pose graph's methods."""
+
+    def __init__(self, pg, names=("query", "verify", "solve")):
+        self.sites = {name: [] for name in names}
+        targets = {"query": (pg.db, "query"), "verify": (pg, "_verify_candidate"),
+                   "solve": (pg, "_optimize")}
+        for name in names:
+            obj, attr = targets[name]
+            self._wrap(obj, attr, name)
+
+    def _wrap(self, obj, attr, name):
+        fn = getattr(obj, attr)
+
+        def counted(*args, **kwargs):
+            # a query of an empty database returns before reaching the card
+            want = int(obj.count > 0) if name == "query" else 1
+            out, sites = sync_sites(lambda: fn(*args, **kwargs))
+            self.sites[name].append((want, sites))
+            return out
+
+        setattr(obj, attr, counted)
+        self._wrapped = getattr(self, "_wrapped", []) + [(obj, attr)]
+
+    def remove(self):
+        for obj, attr in self._wrapped:
+            delattr(obj, attr)
+
+
+def host_ms(fn, runs: int = 10, warmup: int = 2) -> float:
+    """Median host time of fn() with a device sync before and after."""
+    import torch
+
+    times = []
+    for i in range(warmup + runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def loop_session(pg, dev, ren, cam, radius: float, sequence: int, gen, counter, keep=(),
+                 after=None):
+    """Feed one session of keyframes through the module-3 feature function
+    and `PoseGraph.add_keyframe`: `Trajectory.circuit(radius, period 16,
+    height 1)` from LOOP_T0 to LOOP_T1 at LOOP_KF_HZ, rendered on the card
+    with σ = 2 noise; the VIO pose is the true one with a drift growing
+    linearly to LOOP_DRIFT_* at the last keyframe; the window points are a
+    16×16 pixel grid (no estimator: no landmarks, no feature ids).  Host
+    syncs are counted by `counter` (a SyncCounter on `pg`) inside the
+    query, verifications and solves, and by the record elsewhere.  Returns
+    one record per keyframe (and the images of the keyframes in `keep`)."""
+    import torch
+
+    from vins_tpu_torch.core import nplie
+    from vins_tpu_torch.loop.pose_graph import KeyFrame
+    from vins_tpu_torch.loop.verify import keyframe_features
+    from vins_tpu_torch.sim import proxy
+    from vins_tpu_torch.sim.synthetic import Trajectory
+
+    traj = Trajectory.circuit(radius=radius, period=16.0, height=1.0)
+    n = int(round((LOOP_T1 - LOOP_T0) * LOOP_KF_HZ))
+    Ric, tic = np.asarray(proxy.R_IC_FORWARD), np.asarray(proxy.TIC)
+    ys, xs = torch.meshgrid(torch.linspace(40.0, 440.0, 16), torch.linspace(40.0, 712.0, 16),
+                            indexing="ij")
+    uv = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(dev)
+    L = uv.shape[0]
+    window_valid = torch.ones(L, dtype=torch.bool, device=dev)
+    prev = (torch.zeros((256, 2), device=dev), torch.zeros((256, 256), device=dev),
+            torch.zeros(256, dtype=torch.bool, device=dev), torch.zeros(3, device=dev),
+            torch.eye(3, device=dev))
+    recs, kept = [], {}
+    for k in range(n):
+        t = LOOP_T0 + k / LOOP_KF_HZ
+        p_true, q_true = traj.pos_fn(t).numpy(), traj.q(t).numpy()
+        frac = k / (n - 1)
+        Rd = nplie.ypr2R(np.array([LOOP_DRIFT_YAW_DEG * frac, 0.0, 0.0]))
+        p_vio = Rd @ p_true + np.asarray(LOOP_DRIFT_T) * frac
+        q_vio = nplie.qmul(nplie.R2q(Rd), q_true)
+        noise = proxy.PIX_NOISE * torch.randn((proxy.EUROC_H, proxy.EUROC_W), generator=gen,
+                                              device=dev)
+        img = torch.clamp(ren.render_device(p_true, q_true) + noise, 0.0, 255.0)
+        if k in keep:
+            kept[k] = img.clone()
+        R_b = nplie.q2R(q_vio)
+        pose = np.concatenate([p_vio + R_b @ tic, (R_b @ Ric).reshape(-1)]).astype(np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pose_d = torch.from_numpy(pose).to(dev)
+        p_cam, R_wc = pose_d[:3], pose_d[3:].reshape(3, 3)
+        wdesc, fpts, fdesc, fok, X3, okt = keyframe_features(img, uv, cam, *prev, p_cam, R_wc)
+        X3_h = torch.cat([X3.reshape(-1).double(), okt.double()]).cpu().numpy()
+        feat_ms = (time.perf_counter() - t0) * 1e3
+        prev = (fpts, fdesc, fok, p_cam, R_wc)
+        kf = KeyFrame(index=-1, stamp=t, p_vio=p_vio, q_vio=q_vio, points_3d=np.zeros((L, 3)),
+                      points_2d_norm=np.zeros((L, 2)), window_desc=wdesc,
+                      window_valid=window_valid, fast_pts_norm=fpts, fast_desc=fdesc,
+                      fast_valid=fok, sequence=sequence, fast_3d=X3_h[:768].reshape(256, 3),
+                      fast_3d_valid=X3_h[768:] > 0.5)
+        n_opt = pg.n_optimizes
+        n_calls = {name: len(calls) for name, calls in counter.sites.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, other = sync_sites(lambda: pg.add_keyframe(kf))
+        torch.cuda.synchronize()
+        add_ms = (time.perf_counter() - t0) * 1e3
+        recs.append(dict(t=t, p_true=p_true, yaw_true=math.degrees(float(traj.ypr_fn(t)[0])),
+                         index=out["index"], loop=out["loop"], cand=out.get("candidate"),
+                         solved=pg.n_optimizes > n_opt, other_syncs=other, add_ms=add_ms,
+                         feat_ms=feat_ms, kf=kf,
+                         syncs=len(other) + sum(len(s) for name, calls in counter.sites.items()
+                                                for _, s in calls[n_calls[name]:])))
+        if after is not None:
+            after(recs[-1])
+    return recs, kept
+
+
+def check_syncs(counter: SyncCounter, recs, tag: str) -> dict:
+    """One host sync per database query (its score fetch; none while the
+    database is empty), per verification (its one fetch) and per 4-DoF
+    solve (its result fetch); none elsewhere in add_keyframe.  Returns the
+    counts."""
+    bad = {name: [s for want, s in calls if len(s) != want][:3]
+           for name, calls in counter.sites.items()}
+    bad["elsewhere"] = [(r["index"], r["other_syncs"]) for r in recs if r["other_syncs"]][:3]
+    check(not any(bad.values()), f"phase 7{tag}: host syncs other than expected "
+                                 f"(first 3 sites of each): {bad}")
+    per_add = {}
+    for r in recs:
+        per_add[r["syncs"]] = per_add.get(r["syncs"], 0) + 1
+    return dict({f"{name}_calls": len(calls) for name, calls in counter.sites.items()},
+                per_add_keyframe={str(k): v for k, v in sorted(per_add.items())})
+
+
+def add_times(recs) -> dict:
+    med = lambda xs: float(np.median(xs)) if xs else None  # noqa: E731
+    plain = [r["add_ms"] for r in recs if r["cand"] is None and not r["solved"]]
+    verified = [r["add_ms"] for r in recs if r["cand"] is not None and not r["solved"]]
+    solved = [r["add_ms"] for r in recs if r["solved"]]
+    return dict(median_ms=med([r["add_ms"] for r in recs]), max_ms=max(r["add_ms"] for r in recs),
+                query_only_median_ms=med(plain), n_query_only=len(plain),
+                with_verification_median_ms=med(verified), n_with_verification=len(verified),
+                with_solve_median_ms=med(solved), n_with_solve=len(solved))
+
+
+def phase_loop(dev, card: str) -> dict:
+    """7. The loop back-end on the card through `PoseGraph.add_keyframe`:
+    7a one session with a loop, 7b map reuse against the committed JAX map."""
+    import tempfile
+
+    import torch
+
+    from vins_tpu_torch.config import VinsConfig
+    from vins_tpu_torch.core import nplie
+    from vins_tpu_torch.loop import pose_graph as pgm
+    from vins_tpu_torch.loop.brief import brief_describe, fast_detect, smooth_for_brief
+    from vins_tpu_torch.loop.pose_graph import KeyFrame, PoseGraph
+    from vins_tpu_torch.loop.retrieval import KeyframeDB
+    from vins_tpu_torch.sim import proxy
+    from vins_tpu_torch.sim.render import RoomRenderer
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "phase 7: TF32 is on")
+    # the first set_sync_debug_mode of a process synchronizes the device
+    # itself (seen with torch 2.11): make it before any count
+    torch.cuda.set_sync_debug_mode(torch.cuda.get_sync_debug_mode())
+    cfg = VinsConfig()
+    qic, tic = nplie.R2q(np.asarray(proxy.R_IC_FORWARD)), np.asarray(proxy.TIC)
+
+    def graph():
+        return PoseGraph(qic, tic, min_loop_inliers=cfg.min_loop_num,
+                         opt_interval_s=cfg.pg_opt_interval, device=dev)
+
+    cam = proxy.euroc_camera(device=dev)
+    ren = RoomRenderer(cam, proxy.EUROC_H, proxy.EUROC_W, room=proxy.jax_proxy_room(dev),
+                       tic=proxy.TIC, Ric=np.asarray(proxy.R_IC_FORWARD))
+    gen = torch.Generator(device=dev).manual_seed(70)
+    solves = {}
+    solve_4dof = pgm.optimize_4dof
+
+    def recorded(g, iters=5):
+        solves.setdefault(int(g.yaw.shape[0]), g)
+        return solve_4dof(g, iters=iters)
+
+    pgm.optimize_4dof = recorded
+    try:
+        # ---- 7a: one session with a loop --------------------------------
+        pg = graph()
+        syncs_a = SyncCounter(pg)
+        recs, kept = loop_session(pg, dev, ren, cam, radius=4.0, sequence=1, gen=gen,
+                                  counter=syncs_a, keep=LOOP_CPU_KFS)
+        pg.flush()
+        n_kf = len(recs)
+        loops = [(r["index"], r["loop"]) for r in recs if r["loop"] is not None]
+        false = []
+        for i, j in loops:
+            dp = float(np.linalg.norm(recs[i]["p_true"] - recs[j]["p_true"]))
+            dyaw = abs((recs[i]["yaw_true"] - recs[j]["yaw_true"] + 180.0) % 360.0 - 180.0)
+            if dp > FALSE_LOOP_M or dyaw > FALSE_LOOP_DEG:
+                false.append((i, j, round(dp, 3), round(dyaw, 2)))
+        last = pg.keyframes[-1]
+        err_vio = float(np.linalg.norm(last.p_vio - recs[-1]["p_true"]))
+        err_corr = float(np.linalg.norm(last.p - recs[-1]["p_true"]))
+        p_live, _ = pg.correct_pose(last.p_vio, last.q_vio)
+        live_dp = float(np.linalg.norm(p_live - last.p))
+        log(f"phase 7a: {n_kf} keyframes, {len(loops)} verified loops "
+            f"(first {loops[:1]}), {len(false)} false, {pg.n_optimizes} 4-DoF solves; "
+            f"last keyframe position error VIO {err_vio:.4f} m, corrected {err_corr:.4f} m; "
+            f"correct_pose − p {live_dp:.2e} m")
+        check(len(loops) >= 1, "phase 7a: no verified loop")
+        check(not false, f"phase 7a: false loops (i, j, Δp m, Δyaw °): {false}")
+        check(pg.n_optimizes >= 1, "phase 7a: no 4-DoF solve after flush()")
+        check(err_corr < 0.5 * err_vio,
+              f"phase 7a: corrected error {err_corr} m ≥ half the VIO error {err_vio} m")
+        check(live_dp < 1e-6, f"phase 7a: correct_pose differs from p by {live_dp} m")
+        hist_a = check_syncs(syncs_a, recs, "a")
+        syncs_a.remove()
+
+        # the CUDA run's features against the CPU port's on the same images,
+        # and the database query on both devices
+        cdb = KeyframeDB(pg.db.cap, pg.db.P, device="cpu")
+        cdb.desc, cdb.valid = pg.db.desc.cpu(), pg.db.valid.cpu()
+        cdb.kf_index, cdb.count = pg.db.kf_index.copy(), pg.db.count
+        cpu_cmp = []
+        for k, img in kept.items():
+            gp, gok = fast_detect(img, max_pts=256, threshold=20.0)
+            cp, cok = fast_detect(img.cpu(), max_pts=256, threshold=20.0)
+            check(torch.equal(gp.cpu(), cp) and torch.equal(gok.cpu(), cok),
+                  f"phase 7a: keyframe {k}: FAST points differ between CUDA and CPU")
+            gd = brief_describe(smooth_for_brief(img), gp).cpu()
+            cd = brief_describe(smooth_for_brief(img.cpu()), cp)
+            bits = float((gd == cd).float().mean())
+            check(bits >= 0.999, f"phase 7a: keyframe {k}: {bits:.5f} of BRIEF bits agree")
+            kf = recs[k]["kf"]
+            gi, gs = pg.db.query(kf.fast_desc, kf.fast_valid, newest_kf=k)
+            ci, cs = cdb.query(kf.fast_desc.cpu(), kf.fast_valid.cpu(), newest_kf=k)
+            check(np.array_equal(gi, ci) and np.array_equal(gs, cs),
+                  f"phase 7a: keyframe {k}: DB query differs between CUDA and CPU")
+            if bits == 1.0:
+                oi, os_ = cdb.query(cd, cok, newest_kf=k)
+                check(np.array_equal(gi, oi) and np.array_equal(gs, os_),
+                      f"phase 7a: keyframe {k}: DB query on the CPU's own descriptors differs")
+            cpu_cmp.append(dict(keyframe=k, fast_points=int(gok.sum()), brief_bits_equal=bits,
+                                top_scores=[float(s) for s in gs]))
+        log("phase 7a: CUDA ≡ CPU port " + json.dumps(cpu_cmp))
+
+        # times of the pieces on 7a's data
+        looped = [r for r in recs if r["loop"] is not None and r["loop"] <= n_kf - 51]
+        check(bool(looped), "phase 7a: no loop old enough to replay for the profile")
+        src = looped[-1]["kf"]
+        old = pg.keyframes[src.loop_index]
+        verify_ms = host_ms(lambda: pg._verify_candidate(src, old))
+        query_ms = {f"occupied_{pg.db.count}": host_ms(lambda: pg.db.query(
+            src.fast_desc, src.fast_valid, newest_kf=src.index))}
+        full = KeyframeDB(512, 256, device=dev)
+        for i in range(512):
+            full.add(pg.db.desc[i % pg.db.count], pg.db.valid[i % pg.db.count], kf_index=i)
+        full_ms = host_ms(lambda: full.query(src.fast_desc, src.fast_valid, newest_kf=511))
+        # a copy of that keyframe, one keyframe period later: it retrieves
+        # and verifies its loop again (no solve is due)
+        dup = KeyFrame(index=-1, stamp=pg.keyframes[-1].stamp + 1.0 / LOOP_KF_HZ,
+                       p_vio=src.p_vio, q_vio=src.q_vio, points_3d=src.points_3d,
+                       points_2d_norm=src.points_2d, window_desc=src.window_desc,
+                       window_valid=src.window_valid, fast_pts_norm=src.fast_pts,
+                       fast_desc=src.fast_desc, fast_valid=src.fast_valid, sequence=1,
+                       fast_3d=src.fast_3d, fast_3d_valid=src.fast_3d_valid)
+        out, prof = profiled(lambda: pg.add_keyframe(dup), top=12)
+        prof.update(loop=out["loop"], candidate=out.get("candidate"))
+        check(prof["loop"] is not None, f"phase 7a: the profiled add_keyframe verified no loop "
+                                        f"(candidate {prof['candidate']})")
+        log("phase 7a: one add_keyframe that verifies a loop, profiled " + json.dumps(prof))
+
+        # ---- 7b: map reuse -----------------------------------------------
+        pg2 = graph()
+        t0 = time.perf_counter()
+        pg2.load(LOOP_MAP)
+        load_s = time.perf_counter() - t0
+        n_base = len(pg2.keyframes)
+        check(n_base == 204, f"phase 7b: the committed map has {n_base} keyframes, not 204")
+        base_p = [k.p.copy() for k in pg2.keyframes]
+        base_q = [k.q.copy() for k in pg2.keyframes]
+
+        def base_unchanged(tag):
+            same = all(np.array_equal(k.p, p) and k.p.dtype == p.dtype and np.array_equal(k.q, q)
+                       for k, p, q in zip(pg2.keyframes[:n_base], base_p, base_q))
+            check(same, f"phase 7b: base keyframes moved ({tag})")
+
+        def after(rec):
+            if rec["solved"]:
+                base_unchanged(f"after the solve at keyframe {rec['index']}")
+
+        syncs_b = SyncCounter(pg2)
+        recs_b, _ = loop_session(pg2, dev, ren, cam, radius=3.7, sequence=1, gen=gen,
+                                 counter=syncs_b, after=after)
+        pg2.flush()
+        base_unchanged("after flush")
+        to_base = [r for r in recs_b if r["loop"] is not None and r["loop"] < n_base]
+        merged = 1 in pg2._merged
+        log(f"phase 7b: map of {n_base} keyframes loaded in {load_s:.2f} s; {len(recs_b)} new "
+            f"keyframes, {len(to_base)} loops to the base (first at t = "
+            f"{to_base[0]['t'] if to_base else None} s), merged {merged}, "
+            f"{pg2.n_optimizes} 4-DoF solves, base p/q bitwise unchanged after every solve")
+        check(len(to_base) >= 1, "phase 7b: no loop to a base keyframe")
+        check(merged, "phase 7b: session B was not merged onto the base")
+        hist_b = check_syncs(syncs_b, recs_b, "b")
+        syncs_b.remove()
+        query_ms[f"occupied_{pg2.db.count}"] = host_ms(lambda: pg2.db.query(
+            recs_b[-1]["kf"].fast_desc, recs_b[-1]["kf"].fast_valid,
+            newest_kf=recs_b[-1]["index"]))
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "map.npz")
+            pg2.save(path)
+            pg3 = graph()
+            pg3.load(path)
+        ks2, ks3 = pg2.keyframes, pg3.keyframes
+        check(len(ks3) == len(ks2), "phase 7b: save → load changed the keyframe count")
+        for a, b in zip(ks2, ks3):
+            same = (a.stamp == b.stamp and a.loop_index == b.loop_index
+                    and a.loop_rel_yaw == b.loop_rel_yaw
+                    and all(np.array_equal(getattr(a, f), getattr(b, f))
+                            for f in ("p", "q", "p_vio", "q_vio", "loop_rel_t"))
+                    and all(torch.equal(getattr(a, f).to(getattr(b, f).dtype), getattr(b, f))
+                            for f in ("fast_pts", "fast_desc", "fast_valid")))
+            check(same, f"phase 7b: save → load changed keyframe {a.index}")
+        n_all = len(ks2)
+        check(pg3.earliest_loop_index == pg2.earliest_loop_index
+              and np.array_equal(pg3.graph.loop_to[:n_all], pg2.graph.loop_to[:n_all])
+              and np.array_equal(pg3.graph.t[:n_all], np.stack([k.p for k in ks2]))
+              and pg3.db.count == n_all,
+              "phase 7b: save → load did not reproduce the graph")
+        solve_ms = {size: host_ms(lambda g=g: solve_4dof(g, iters=5).yaw.cpu(), runs=5)
+                    for size, g in sorted(solves.items())}
+    finally:
+        pgm.optimize_4dof = solve_4dof
+    times = dict(
+        card=card,
+        feature_fn_ms_median=float(np.median([r["feat_ms"] for r in recs + recs_b])),
+        db_query_ms=dict(query_ms, full_512=full_ms),
+        verification_ms=verify_ms,
+        optimize_4dof_ms_by_padded_size={str(k): v for k, v in solve_ms.items()},
+        add_keyframe_7a=add_times(recs), add_keyframe_7b=add_times(recs_b),
+        host_syncs_per_add_keyframe={"7a": hist_a, "7b": hist_b},
+        phase_s=time.perf_counter() - t_phase)
+    log("phase 7: times " + json.dumps(times))
+    return dict(loops_7a=len(loops), false_loops_7a=0, optimizes_7a=pg.n_optimizes,
+                err_vio_m=err_vio, err_corrected_m=err_corr, loops_to_base_7b=len(to_base),
+                new_keyframes_7b=len(recs_b), optimizes_7b=pg2.n_optimizes, times=times,
+                profile=prof)
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
-    ap.add_argument("--phases", default="2,3,4,5,6",
+    ap.add_argument("--phases", default="2,3,4,5,6,7",
                     help="phases after the build to run; any other set than the default "
                          "prints no result lines")
     phases = {int(x) for x in ap.parse_args().phases.split(",")}
-    full = phases == {2, 3, 4, 5, 6}
+    full = phases == {2, 3, 4, 5, 6, 7}
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1172,6 +1596,12 @@ def main() -> int:
         log("phase 6: " + json.dumps(modes))
         launches6, replayed = phase_replay(dev)
         log("phase 6: replay " + json.dumps(replayed))
+
+    # ---- 7. the loop back-end -----------------------------------------------------
+    if 7 in phases:
+        loop = phase_loop(dev, card)
+        log("phase 7: " + json.dumps({k: v for k, v in loop.items()
+                                      if k not in ("times", "profile")}))
     if not full:
         return 0
 

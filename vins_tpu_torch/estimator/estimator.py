@@ -37,6 +37,7 @@ from ..frontend.tracker import N_HYP, gumbel_draw
 from ..imu.preintegration import ImuNoise
 from ..init.ex_rotation import ExRotBuffer, calibrate_ex_rotation, push_pair
 from ..init.relative_pose import solve_relative_pose
+from ..loop.relocalize import relative_pose_4dof
 from ..solver.gn import SolverOptions
 from ..solver.problem import FeatureObs, Layout, Prior, WindowState
 from .feature_db import FeatureDB
@@ -47,17 +48,6 @@ from .step import StepResult, make_vio_step
 
 INITIAL = 0
 NON_LINEAR = 1
-
-
-def relative_pose_4dof(p_old_b, q_old_b, p_cur_b, q_cur_b):
-    """relo_relative_t/q/yaw (double2vector, estimator.cpp:597-618), on the
-    host: the current keyframe in the old keyframe's body frame, plus the
-    yaw difference."""
-    rel_t = nplie.q2R(nplie.qconj(q_old_b)) @ (p_cur_b - p_old_b)
-    rel_q = nplie.qmul(nplie.qconj(q_old_b), q_cur_b)
-    rel_yaw = nplie.normalize_angle(nplie.R2ypr(nplie.q2R(q_cur_b))[0]
-                                    - nplie.R2ypr(nplie.q2R(q_old_b))[0])
-    return rel_t, rel_q, rel_yaw
 
 
 class PendingStep(NamedTuple):

@@ -108,8 +108,9 @@ def replay(root: str, cfg, cam, loop: bool = False, max_frames: int = 0,
             # the prefetch stream is index-aligned with the camera frames:
             # skip the images of frames the aligner dropped
             while img_i < m.payload:
-                if isinstance(imgq.get(), Exception):
-                    break
+                skipped = imgq.get()
+                if isinstance(skipped, Exception):
+                    raise RuntimeError("image prefetch failed") from skipped
                 img_i += 1
             img = imgq.get()
             img_i += 1

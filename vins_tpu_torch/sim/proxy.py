@@ -9,6 +9,7 @@ ground-truth epipolar error of published tracks, the proxy `Pipeline`
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -34,6 +35,20 @@ FOCAL = 460.0
 # 200 Hz IMU; the pipeline publishes 10 Hz frames, the front-end cell tracks
 # 20 Hz ones (HZ)
 HZ, RADIUS, PERIOD, PIX_NOISE, TEX_K, SEED, IMU_HZ = 20.0, 4.0, 16.0, 2.0, 96, 0, 200.0
+
+
+# The JAX proxy's room (vins_tpu/sim/proxy.py:99, seed 0: jax.random.PRNGKey(7),
+# 96 components per face).  Its textures are jax.random draws, so they are
+# stored; `python tests/test_torch_pose_graph.py` writes the file and that
+# test holds it bitwise.  Maps the JAX package saved in the proxy
+# (results/two_session_map.npz) were made in this room.
+JAX_ROOM_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jax_proxy_room.npy")
+
+
+def jax_proxy_room(device="cuda") -> Room:
+    lo = torch.tensor((-8.0, -8.0, -2.0), device=device)
+    hi = torch.tensor((8.0, 8.0, 4.0), device=device)
+    return Room(lo, hi, torch.from_numpy(np.load(JAX_ROOM_FILE)).to(device))
 
 
 def euroc_camera(dtype=torch.float32, device="cuda") -> PinholeCamera:
