@@ -58,13 +58,40 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      reproducing the graph.  In every add_keyframe the host syncs are
      counted (one for the query, one per verification, one per solve);
      the pieces are timed and one add_keyframe that verifies a loop is
-     profiled.
+     profiled;
+  8. loop closure inside `Pipeline` on the inputs of the JAX package's
+     headline loop run (30 s of the JAX proxy's room at 10 Hz, the circuit
+     revisits its start from t = 17 s), beside a loop-off run of the same
+     inputs.  8a, serial, the pose graph in line, every VIO step graphed
+     under sync-debug mode "error", with fast relocalization off and then
+     on: the estimator events of the loop-off run (loop closure adds no
+     reboot or failure), at least one verified loop and no false one, a 4-DoF
+     solve, a corrected pose per VIO pose, one `lk_pyramid` launch per
+     tracked frame, one graph replay per window solve and one capture; off,
+     the VIO ATE and the corrected ATE ≤ 1.15 × VIO + 0.02 m over the first
+     gauge segment; on, at least one relocalization armed, its relo event ok
+     and its edge taken by `update_keyframe_loop`; each keyframe frame timed
+     by span beside phase 5's loop-off frame.  8a′, the graphed step against
+     the eager one on the first blob with a relocalization match armed (≤
+     1e-9 relative, both marg_old, the relocalization pose included).  8b,
+     the relocalization run overlapped: the same estimator events and
+     pose-graph results, max |Δp| ≤ 1e-6 m on both trajectories, one host
+     sync per keyframe outside the pose graph's query, verifications and
+     solves.  8c, the looped replay: the tree of
+     tests/test_euroc_replay_loop.py written by `sim/euroc_writer.py`,
+     replayed as `run_euroc`'s command line runs it (overlapped, the pose
+     graph on its worker thread) with that test's config, and with loop
+     closure off: no failure, a loop, a solve, the corrected ATE ≤ 1.15 ×
+     VIO + 0.02 m, the VIO equal to the loop-off replay's, no worker error,
+     the queue drained, every stored keyframe with a worker result, both TUM
+     files; per-frame latency and frames per second of both.
 Then it prints a `kernels` JSON line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 5,6    # build, then only phases 5-6 (no result lines)
     python3 chip_smoke.py --phases 7      # build, then only the loop back-end
+    python3 chip_smoke.py --phases 8      # build, then only the looped pipeline and replay
 """
 from __future__ import annotations
 
@@ -119,6 +146,39 @@ LOOP_CPU_KFS = (64, 76, 88)  # keyframes whose features the CPU port recomputes
 # session A of tools/run_two_session.py (the JAX package): 204 keyframes
 LOOP_MAP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
                         "two_session_map.npz")
+
+
+# Phase 8: loop closure inside Pipeline on the inputs of the JAX package's
+# headline loop run (tools/run_proxy.py --duration 30 --period 16, seed 0):
+# the port's proxy inputs in the JAX proxy's room, 30 s at 10 Hz; the proxy
+# config (pg_skip_first_cnt 10, min_loop_num 25, pg_opt_interval 2 s) with
+# fast relocalization on.  8c replays the tree of
+# tests/test_euroc_replay_loop.py:24-44 with that test's config.
+# Limits, from the JAX pipeline on the same inputs (rendered by the port on
+# the CPU, float64 estimator; tools/port_loop_reference.py): it initialized
+# at published frame 18, ran its 297 published frames with no failure,
+# verified 95 loops (none false) with 7 4-DoF solves and ended at 0.36033 m
+# SE(3) ATE for the VIO; its corrected trajectory at 0.35466 m with fast
+# relocalization off and at 1.43752 m with it on (the relocalization pairs
+# are unverified descriptor matches and its refined loop edges are worse
+# than the verified ones, ROADMAP Queue 3).  So the corrected bound, ≤ 1.15 ×
+# VIO + 0.02 m, is held with fast relocalization off (the config's default);
+# the run with it on is held to the relocalization round trip and its ATE
+# recorded.  Margins: the VIO ATE may be twice the JAX run's, for phase 5's
+# reason; ≥ 1 loop and none false, not the JAX loop count (the port's tracks
+# follow its own float32 RANSAC draws).  On these inputs the port's main path
+# with its draws on the card reboots at t = 25.8 s with loop closure off too
+# (ROADMAP Queue 3): the estimator events allowed are those of the loop-off
+# run with the same inputs and draws, and the ATE is scored over the first
+# gauge segment.
+LOOP_SECONDS = 30.0
+JAX_LOOP = dict(init_pub=18, ate_vio_m=0.36033, ate_loop_m=1.43752, ate_loop_no_relo_m=0.35466,
+                loops=95, optimizes=7)
+LIMITS.update(loop_ate_vio_max_m=2.0 * JAX_LOOP["ate_vio_m"])
+PG_SPANS = ("pose_graph", "pg_features", "pg_add")
+LOOP_REPLAY = dict(duration=16.0, period=10.0, seed=0, frame_hz=20.0)
+JAX_LOOP_REPLAY = dict(ate_vio_m=0.21359, ate_loop_m=0.16363, loops=35, optimizes=3)
+LOOP_REPLAY_CFG = dict(pg_skip_first_cnt=5, min_loop_num=20)
 
 
 def log(msg: str) -> None:
@@ -804,7 +864,7 @@ def phase_pipeline(dev):
         f"{inp.acc.shape[0] * inp.acc.shape[1]} IMU samples at 200 Hz made in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    pipe = proxy.make_pipeline(device=dev)
+    pipe = proxy.make_pipeline(device=dev, loop_closure=False)
     est = pipe.estimator
     est.sync_check = True  # every VIO step: sync-debug "error" from upload to fetch
     frames = []
@@ -885,13 +945,14 @@ def phase_pipeline(dev):
 SPANS = ("frontend", "front_fetch", "estimator", "est_fetch")
 
 
-def feed(pipe, inp, shift: float = 0.0):
+def feed(pipe, inp, shift: float = 0.0, spans=SPANS):
     """`run_proxy`'s feed (the IMU since the last frame, then the frame),
     times shifted by `shift`, each `process_image` call timed on the host
-    clock with a device sync at its end and split by the tracer's spans.
-    Returns the record of every call: the kinds of the events it returned
-    (an overlapped call returns earlier frames' events), ms, and each
-    span's ms in it; and the run's seconds."""
+    clock with a device sync at its end and split by the tracer's `spans`.
+    Returns the record of every call: the event it returned (an overlapped
+    call returns earlier frames' events) and its kind, ms, and each span's
+    ms in it; the kinds of the events the end-of-stream flush returned; and
+    the run's seconds."""
     import torch
 
     stats, recs = pipe.tracer.stats, []
@@ -900,13 +961,13 @@ def feed(pipe, inp, shift: float = 0.0):
         if fi > 0:
             for ti, a, w in zip(inp.imu_t[fi - 1], inp.acc[fi - 1], inp.gyr[fi - 1]):
                 pipe.process_imu(float(ti) + shift, a, w)
-        n0 = {k: stats.count(k) for k in SPANS}
+        n0 = {k: stats.count(k) for k in spans}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev = pipe.process_image(inp.frames[fi], float(t) + shift)
         torch.cuda.synchronize()
-        rec = dict(kind=ev.get("kind"), ms=(time.perf_counter() - t0) * 1e3)
-        rec.update({k: stats.last(k) if stats.count(k) > n0[k] else 0.0 for k in SPANS})
+        rec = dict(ev=ev, kind=ev.get("kind"), ms=(time.perf_counter() - t0) * 1e3)
+        rec.update({k: stats.last(k) if stats.count(k) > n0[k] else 0.0 for k in spans})
         recs.append(rec)
     flushed = pipe.flush_frames()
     return recs, [e["kind"] for e in flushed], time.perf_counter() - t_run
@@ -929,26 +990,30 @@ def max_dp(ta, tb) -> float:
     return float(max(np.abs(a[1] - b[1]).max() for a, b in zip(ta, tb)))
 
 
-def graph_vs_eager(est, tag: str) -> float:
-    """The graphed step against the eager step (`packed_step`) on the
-    estimator's current window and prior, for both values of marg_old: the
-    packed result (state, inverse depths, costs) and the output prior to
-    ≤ 1e-9 relative (max |Δ| over max |eager| of each group).  The prior is
-    restored afterwards.  Returns the largest relative difference."""
+def graph_vs_eager(est, tag: str, blobs=None, prior=None) -> float:
+    """The graphed step against the eager step (`packed_step`) for both
+    values of marg_old, on the estimator's current window and prior or on
+    given blobs (by marg_old) and prior: the packed result (state, inverse
+    depths, costs, relocalization pose), the relocalization pose alone and
+    the output prior to ≤ 1e-9 relative (max |Δ| over max |eager| of each
+    group).  The estimator's prior is restored afterwards.  Returns the
+    largest relative difference."""
     import torch
 
     from vins_tpu_torch.estimator.graph import clone_prior
 
     graph, worst = est._graph, 0.0
     saved = clone_prior(est.prior)
+    start = saved if prior is None else prior
     for marg_old in (True, False):
-        blob = est._pack_blob(marg_old)
-        eager = est.packed_step(torch.from_numpy(blob).to(est.device), clone_prior(saved),
+        blob = est._pack_blob(marg_old) if blobs is None else blobs[marg_old]
+        eager = est.packed_step(torch.from_numpy(blob).to(est.device), clone_prior(start),
                                 marg_old)
         out_e, prior_e = est._pack_result(eager), eager.prior
-        est.prior = saved
+        est.prior = start
         est.fetch(est.dispatch(blob, marg_old))
-        groups = [("result", out_e, graph.out), ("prior J", prior_e.J, graph.prior.J),
+        groups = [("result", out_e, graph.out), ("relo pose", out_e[-7:], graph.out[-7:]),
+                  ("prior J", prior_e.J, graph.prior.J),
                   ("prior r0", prior_e.r0, graph.prior.r0),
                   ("prior lin", torch.cat([x.reshape(-1) for x in prior_e.lin]),
                    torch.cat([x.reshape(-1) for x in graph.prior.lin])),
@@ -1027,13 +1092,13 @@ def phase_modes(dev, inp, pipe5, ref_kinds):
     out = {}
     ref = list(pipe5.trajectory)
 
-    eager = proxy.make_pipeline(device=dev, cuda_graph=False)
+    eager = proxy.make_pipeline(device=dev, cuda_graph=False, loop_closure=False)
     recs, flushed, run_s = feed(eager, inp)
     check(kinds_of(recs, flushed) == ref_kinds, "phase 6: the eager serial run's events differ")
     out["serial_eager"] = per_vio_frame(recs) | {"run_s": run_s}
     out["serial_eager_vs_graph_max_dp_m"] = max_dp(ref, eager.trajectory)
 
-    over = proxy.make_pipeline(device=dev, overlap=True)
+    over = proxy.make_pipeline(device=dev, overlap=True, loop_closure=False)
     over.estimator.sync_check = True
     recs, flushed, run_s = feed(over, inp)
     check(kinds_of(recs, flushed) == ref_kinds,
@@ -1102,7 +1167,7 @@ def phase_replay(dev):
         t0 = time.perf_counter()
         info = write_euroc_dataset(root, duration=PROXY_SECONDS, device=dev)
         write_s = time.perf_counter() - t0
-        pipe = proxy.make_pipeline(device=dev, overlap=True)
+        pipe = proxy.make_pipeline(device=dev, overlap=True, loop_closure=False)
         pipe.estimator.sync_check = True
         calls = []
         process = pipe.process_image
@@ -1520,17 +1585,430 @@ def phase_loop(dev, card: str) -> dict:
                 profile=prof)
 
 
+def estimator_events(pipe) -> list:
+    """The (kind, stamp) of every estimator event of `pipe`, in order,
+    recorded where the pipeline hands it downstream; an overlapped call's
+    returned dict can merge two of them."""
+    events, downstream = [], pipe._downstream
+
+    def recorded(out, t):
+        events.append((out.get("kind"), round(float(t), 6)))
+        return downstream(out, t)
+
+    pipe._downstream = recorded
+    return events
+
+
+def truth_of(inp):
+    """stamp → (true position, true yaw in degrees) of the nearest frame."""
+    from vins_tpu_torch.core import nplie
+
+    yaws = np.array([nplie.R2ypr(nplie.q2R(q))[0] for q in inp.q_gt])
+
+    def truth(stamp):
+        k = int(np.argmin(np.abs(inp.t - stamp)))
+        return inp.p_gt[k], yaws[k]
+
+    return truth
+
+
+def loop_checks(pipe, truth, tag: str) -> dict:
+    """No worker error; at least one verified loop and no false one (phase
+    7's rule); at least one 4-DoF solve; a corrected pose per VIO pose."""
+    errors = [e for e in pipe.pg_events if "error" in e]
+    check(not errors, f"{tag}: pose-graph errors {errors[:3]}")
+    kfs = pipe.pose_graph.keyframes
+    loops = [(e["index"], e["loop"]) for e in pipe.pg_events if e.get("loop") is not None]
+    false = []
+    for i, j in loops:
+        (pi, yi), (pj, yj) = truth(kfs[i].stamp), truth(kfs[j].stamp)
+        dp = float(np.linalg.norm(pi - pj))
+        dyaw = abs((yi - yj + 180.0) % 360.0 - 180.0)
+        if dp > FALSE_LOOP_M or dyaw > FALSE_LOOP_DEG:
+            false.append((i, j, round(dp, 3), round(float(dyaw), 2)))
+    check(len(loops) >= 1, f"{tag}: no verified loop")
+    check(not false, f"{tag}: false loops (i, j, Δp m, Δyaw °): {false}")
+    check(pipe.pose_graph.n_optimizes >= 1, f"{tag}: no 4-DoF solve")
+    check(len(pipe.trajectory_loop) == len(pipe.trajectory),
+          f"{tag}: {len(pipe.trajectory_loop)} corrected poses for {len(pipe.trajectory)}")
+    return dict(keyframes=len(kfs), loops=len(loops), first_loop=loops[0] if loops else None,
+                false_loops=0,
+                n_optimizes=pipe.pose_graph.n_optimizes)
+
+
+def gauge_ate(pipe, base, inp, kinds) -> dict:
+    """SE(3) ATE of the VIO and corrected trajectories over their first gauge
+    segment: from initialization to the last pose before the first reboot
+    (a reboot re-initializes in a new gauge, so one alignment across it
+    scores the gauge change), beside the whole run's and the loop-off run's
+    (`base`) over the same segment.  `kinds` are the run's event kinds, one
+    pose per "initialized" or "vio"."""
+    from vins_tpu_torch.sim import proxy
+
+    end = kinds.index("reboot") if "reboot" in kinds else len(kinds)
+    cut = sum(k in ("initialized", "vio") for k in kinds[:end])
+    seg = lambda traj: traj[:cut]  # noqa: E731
+    ate = lambda traj: proxy.ate_rmse_tum(traj, inp.t, inp.p_gt)  # noqa: E731
+    return dict(frames=cut, vio_m=ate(seg(pipe.trajectory)), loop_m=ate(seg(pipe.trajectory_loop)),
+                loop_off_vio_m=ate(seg(base.trajectory)), whole_run_vio_m=ate(pipe.trajectory),
+                whole_run_loop_m=ate(pipe.trajectory_loop), whole_run_poses=len(pipe.trajectory))
+
+
+def keyframe_frames(recs) -> dict:
+    """Per-call medians by span over the VIO calls whose frame handed a
+    keyframe to the pose graph (in line), with their largest time and how
+    many passed 100 ms; and over the VIO calls that handed none."""
+    keys = ("ms",) + SPANS + PG_SPANS
+    kf = [r for r in recs if r["kind"] == "vio" and r["pose_graph"] > 0]
+    other = [r for r in recs if r["kind"] == "vio" and r["pose_graph"] == 0]
+
+    def med(rs):
+        return {k: float(np.median([r[k] for r in rs])) for k in keys} | {"n": len(rs)}
+
+    return dict(keyframe_frame=med(kf) | dict(max_ms=max(r["ms"] for r in kf),
+                                              over_100_ms=sum(r["ms"] > 100.0 for r in kf)),
+                other_vio_frame=med(other) if other else None)
+
+
+def serial_loop_run(dev, inp, relocalization: bool, events0) -> dict:
+    """One serial run of the loop proxy with the pose graph in line, every
+    VIO step graphed under sync-debug mode "error", each call timed by span;
+    its estimator events must be the loop-off run's (`events0`).  With
+    `relocalization`, the armed matches, the relo edges taken by the pose
+    graph and the first blob with a match armed (both marg_old, and the
+    prior before that step) are recorded."""
+    from vins_tpu_torch.estimator.graph import clone_prior
+    from vins_tpu_torch.frontend.klt_cuda import lk_level, lk_pyramid
+    from vins_tpu_torch.sim import proxy
+
+    tag = "phase 8a" + (" (relocalization)" if relocalization else "")
+    pipe = proxy.make_pipeline(device=dev, fast_relocalization=relocalization)
+    est, pg = pipe.estimator, pipe.pose_graph
+    est.sync_check = True
+    armed, updates, relo_blob = [], [], {}
+    if relocalization:
+        set_relo, update, pack = est.set_relo_frame, pg.update_keyframe_loop, est._pack_blob
+        relo_at = est._offs[[name for name, _ in est._blob_spec()].index("relo_on")]  # scalar
+
+        def set_relo_rec(*a):
+            armed.append(set_relo(*a))
+            return armed[-1]
+
+        def update_rec(index, *a):
+            updates.append((index, update(index, *a)))
+            return updates[-1][1]
+
+        def pack_rec(marg_old):
+            blob = pack(marg_old)
+            if not relo_blob and blob[relo_at] > 0.5:
+                relo_blob.update(blobs={m: pack(m) for m in (True, False)},
+                                 prior=clone_prior(est.prior))
+            return blob
+
+        est.set_relo_frame, pg.update_keyframe_loop, est._pack_blob = (set_relo_rec, update_rec,
+                                                                        pack_rec)
+    events = estimator_events(pipe)
+    n = len(inp.t)
+    lk_pyramid.launches = lk_level.launches = 0
+    recs, _, run_s = feed(pipe, inp, spans=SPANS + PG_SPANS)
+    launches = {"lk_pyramid": lk_pyramid.launches, "lk_level": lk_level.launches}
+    pipe.pg_join()
+    if relocalization:
+        del est.set_relo_frame, pg.update_keyframe_loop, est._pack_blob
+
+    kinds = [k for k, _ in events]
+    check("initialized" in kinds, f"{tag}: the estimator never initialized: {kinds}")
+    # the main path's own reboots are those of the loop-off run on the same
+    # inputs and draws (see LIMITS); loop closure may add none
+    check(events == events0, f"{tag}: estimator events differ from the loop-off run's: "
+                             f"{[e for e in events if e[0] != 'vio']} against "
+                             f"{[e for e in events0 if e[0] != 'vio']}")
+    check(launches == {"lk_pyramid": n - 1, "lk_level": 0},
+          f"{tag}: launches {launches}, expected lk_pyramid once per tracked frame ({n - 1})")
+    steps = sum(k in ("initialized", "vio", "reboot") for k in kinds)
+    graph = est._graph
+    check(graph.replays == steps and graph.captures == 1,
+          f"{tag}: {graph.replays} graph replays for {steps} window solves, "
+          f"{graph.captures} captures")
+    relos = [r["ev"]["relo"] for r in recs if "relo" in r["ev"]]
+    return dict(pipe=pipe, recs=recs, kinds=kinds, events=events, launches=launches,
+                steps=steps, run_s=run_s, armed=armed, updates=updates, relos=relos,
+                relo_blob=relo_blob, loops=loop_checks(pipe, truth_of(inp), tag))
+
+
+def phase_loop_pipeline(dev, frame5: dict) -> tuple:
+    """8a-8b. Loop closure inside `Pipeline` on the 30 s loop proxy, serial
+    with the pose graph in line: 8a with fast relocalization off (the
+    config's default, and the JAX headline run's), then on; 8a′ the graphed
+    step against the eager one on the first blob with a relocalization match
+    armed; 8b the relocalization run overlapped, with the host syncs of each
+    keyframe's processing counted.  A loop-off run on the same inputs gives
+    the main path's own estimator events.  `frame5` is phase 5's loop-off
+    VIO frame by span (None when phase 5 did not run).  Returns (lk_pyramid
+    launches, summary)."""
+    import torch
+
+    from vins_tpu_torch.frontend.klt_cuda import lk_pyramid
+    from vins_tpu_torch.sim import proxy
+
+    t_phase = time.perf_counter()
+    # the first set_sync_debug_mode of a process synchronizes the device
+    torch.cuda.set_sync_debug_mode(torch.cuda.get_sync_debug_mode())
+    t0 = time.perf_counter()
+    inp = proxy.proxy_inputs(duration=LOOP_SECONDS, device=dev, room=proxy.jax_proxy_room(dev))
+    torch.cuda.synchronize()
+    n = len(inp.t)
+    log(f"phase 8: {n} frames {tuple(inp.frames[0].shape)} of the JAX proxy's room at 10 Hz "
+        f"made in {time.perf_counter() - t0:.2f} s")
+    out = {}
+
+    # ---- the same inputs with loop closure off: the main path's own events --
+    base = proxy.make_pipeline(device=dev, loop_closure=False)
+    base.estimator.sync_check = True
+    events0 = estimator_events(base)
+    feed(base, inp)
+    reboots = [t for k, t in events0 if k == "reboot"]
+
+    # ---- 8a: relocalization off, then on ------------------------------------
+    a = serial_loop_run(dev, inp, False, events0)
+    r = serial_loop_run(dev, inp, True, events0)
+    i0 = a["kinds"].index("initialized")
+    ate = {"8a": gauge_ate(a["pipe"], base, inp, a["kinds"]),
+           "8a_relocalization": gauge_ate(r["pipe"], base, inp, r["kinds"])}
+    n_armed = sum(x is not None for x in r["armed"])
+    n_taken = sum(ok for _, ok in r["updates"])
+    for name, run in (("8a", a), ("8a_relocalization", r)):
+        lp = run["loops"]
+        log(f"phase {name}: initialized at published frame {i0} (JAX: {JAX_LOOP['init_pub']}), "
+            f"{run['steps']} graphed window solves ({run['pipe'].estimator._graph.captures} "
+            f"capture), reboots at {reboots} s as the loop-off run; {lp['keyframes']} keyframes, "
+            f"{lp['loops']} verified loops (first {lp['first_loop']}), 0 false, "
+            f"{lp['n_optimizes']} 4-DoF solves; lk_pyramid {run['launches']['lk_pyramid']} = "
+            f"{n - 1} tracked frames; SE(3) ATE " + json.dumps(ate[name]))
+    log(f"phase 8a (relocalization): {n_armed} matches armed of {len(r['armed'])}, "
+        f"{sum(bool(x.get('ok')) for x in r['relos'])} relo events ok, update_keyframe_loop "
+        f"took {n_taken} of {len(r['updates'])} edges (JAX, no reboot: VIO "
+        f"{JAX_LOOP['ate_vio_m']:.4f} m, corrected {JAX_LOOP['ate_loop_no_relo_m']:.4f} m "
+        f"without relocalization, {JAX_LOOP['ate_loop_m']:.4f} m with it)")
+    e = ate["8a"]
+    check(e["frames"] >= 100, f"phase 8a: the first gauge segment has {e['frames']} poses")
+    check(np.isfinite(e["vio_m"]) and e["vio_m"] < LIMITS["loop_ate_vio_max_m"],
+          f"phase 8a: VIO ATE {e['vio_m']} m ≥ {LIMITS['loop_ate_vio_max_m']} m")
+    check(e["loop_m"] <= 1.15 * e["vio_m"] + 0.02,
+          f"phase 8a: corrected ATE {e['loop_m']} m > 1.15 × VIO {e['vio_m']} m + 0.02 m")
+    check(n_armed >= 1, "phase 8a: no relocalization match armed")
+    check(any(x.get("ok") for x in r["relos"]), "phase 8a: no relo event ok")
+    check(n_taken >= 1, "phase 8a: update_keyframe_loop never took a relo edge")
+    for name, run in (("8a", a), ("8a_relocalization", r)):
+        out[name] = dict(run["loops"], init_published_index=i0, window_solves=run["steps"],
+                         failures=run["pipe"].estimator.failures, reboots_s=reboots,
+                         ate=ate[name], run_s=run["run_s"], **keyframe_frames(run["recs"]))
+    out["8a_relocalization"].update(relo_armed=n_armed, relo_matches=len(r["armed"]),
+                                    relo_ok=sum(bool(x.get("ok")) for x in r["relos"]),
+                                    update_keyframe_loop=[len(r["updates"]), n_taken])
+    out["loop_off_vio_frame_phase5"] = frame5
+    for name in ("8a", "8a_relocalization"):
+        kf = out[name]["keyframe_frame"]
+        log(f"phase {name}: per keyframe frame (median of {kf['n']}): process_image "
+            f"{kf['ms']:.2f} ms = front-end {kf['frontend']:.2f} + estimator {kf['estimator']:.2f}"
+            f" + pose graph {kf['pose_graph']:.2f} (features {kf['pg_features']:.2f}, "
+            f"add_keyframe {kf['pg_add']:.2f}); at most {kf['max_ms']:.2f} ms, "
+            f"{kf['over_100_ms']} over 100 ms; loop-off VIO frame of phase 5: "
+            + (f"{frame5['ms']:.2f} ms" if frame5 else "phase 5 not run"))
+
+    # ---- 8a′: graph ≡ eager with a relocalization match armed --------------
+    relo_blob, est = r["relo_blob"], r["pipe"].estimator
+    check(bool(relo_blob), "phase 8a′: no window solve ran with a relocalization match armed")
+    names = [name for name, _ in est._blob_spec()]
+
+    def field(name):
+        i = names.index(name)
+        return relo_blob["blobs"][True][est._offs[i]:est._offs[i + 1]]
+
+    out["8a_prime_graph_vs_eager_rel"] = graph_vs_eager(est, "phase 8a′", relo_blob["blobs"],
+                                                        relo_blob["prior"])
+    relo_out = est._graph.out[-7:].cpu().numpy()
+    log(f"phase 8a′: graphed step against eager on the first blob with relo_on = 1 "
+        f"({int(field('relo_valid').sum())} relo observations), both marg_old: max relative "
+        f"difference {out['8a_prime_graph_vs_eager_rel']:.3e} (relo position "
+        f"{np.round(field('relo_pq')[:3], 4).tolist()} → {np.round(relo_out[:3], 4).tolist()})")
+
+    # ---- 8b: the relocalization run overlapped --------------------------------
+    over = proxy.make_pipeline(device=dev, overlap=True, fast_relocalization=True)
+    over.estimator.sync_check = True
+    events_b = estimator_events(over)
+    counter, sites = SyncCounter(over.pose_graph), []
+    process = over._pg_process
+
+    def counted(payload):
+        res, s = sync_sites(lambda: process(payload))
+        sites.append(s)
+        return res
+
+    over._pg_process = counted
+    lk_pyramid.launches = 0
+    _, _, run_s_b = feed(over, inp)
+    launches = {"serial": r["launches"]["lk_pyramid"], "lk_level": r["launches"]["lk_level"],
+                "serial_no_relocalization": a["launches"]["lk_pyramid"],
+                "overlap": lk_pyramid.launches}
+    over.pg_join()
+    pipe = r["pipe"]
+    check(events_b == r["events"], "phase 8b: overlapped estimator events differ from serial")
+    keys = ("index", "loop", "candidate", "verify")
+    diff = [(x.get("index"), y.get("index")) for x, y in zip(pipe.pg_events, over.pg_events)
+            if any(x.get(k) != y.get(k) for k in keys)]
+    check(len(over.pg_events) == len(pipe.pg_events) and not diff,
+          f"phase 8b: pose-graph events differ from serial: {len(over.pg_events)} against "
+          f"{len(pipe.pg_events)}, first differing {diff[:3]}")
+    dp, dp_loop = max_dp(pipe.trajectory, over.trajectory), max_dp(pipe.trajectory_loop,
+                                                                  over.trajectory_loop)
+    check(dp <= 1e-6 and dp_loop <= 1e-6,
+          f"phase 8b: max|Δp| against serial {dp} m (VIO), {dp_loop} m (corrected) > 1e-6 m")
+    check(launches["overlap"] == n - 1, f"phase 8b: lk_pyramid launches {launches['overlap']}")
+    bad = {name: [s for want, s in calls if len(s) != want][:3]
+           for name, calls in counter.sites.items()}
+    bad["keyframe features"] = [s for s in sites if len(s) != 1][:3]
+    check(not any(bad.values()), f"phase 8b: host syncs other than expected: {bad}")
+    counter.remove()
+    out["8b"] = dict(events=len(events_b), pg_events=len(over.pg_events), max_dp_m=dp,
+                     max_dp_loop_m=dp_loop, run_s=run_s_b,
+                     host_syncs=dict({f"{k}_calls": len(v) for k, v in counter.sites.items()},
+                                     keyframe_feature_fetches=len(sites)))
+    log(f"phase 8b: overlapped against serial (relocalization on): the same {len(events_b)} "
+        f"estimator events and {len(over.pg_events)} pose-graph results (loops, candidates, "
+        f"gates), max|Δp| {dp:.3e} m VIO, {dp_loop:.3e} m corrected; host syncs per keyframe: "
+        f"one fetch of the corner depths ({len(sites)}), one per query, verification and "
+        f"solve; lk_pyramid {launches['overlap']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return launches, out
+
+
+def phase_loop_replay(dev, replay6: dict) -> tuple:
+    """8c. The looped EuRoC-layout replay: the tree of
+    tests/test_euroc_replay_loop.py:24-44 written by the port's writer,
+    replayed by `run_euroc.replay` as its command line runs it (overlapped,
+    loop closure on, the pose graph on its worker thread) with that test's
+    config, and the same tree with loop closure off; both trajectories
+    written.  `replay6` is phase 6's loop-off replay (None when phase 6 did
+    not run).  Returns (lk_pyramid
+    launches, summary)."""
+    import tempfile
+
+    import torch
+
+    from vins_tpu_torch.frontend.klt_cuda import lk_pyramid
+    from vins_tpu_torch.io.euroc import load_groundtruth
+    from vins_tpu_torch.pipeline import Pipeline
+    from vins_tpu_torch.run_euroc import replay
+    from vins_tpu_torch.sim import proxy
+    from vins_tpu_torch.sim.euroc_writer import write_euroc_dataset
+
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        info = write_euroc_dataset(root, device=dev, **LOOP_REPLAY)
+        out["write_s"] = time.perf_counter() - t0
+        gt = load_groundtruth(root)
+        for loop in (False, True):
+            cfg = proxy.make_config(loop_closure=loop, pg_async=loop, overlap=True,
+                                    **LOOP_REPLAY_CFG)
+            pipe = Pipeline(cfg, proxy.euroc_camera(device=dev), loop_closure=loop, device=dev)
+            ms = []
+            process = pipe.process_image
+
+            def timed(img, t, gumbel=None, process=process, ms=ms):
+                t0 = time.perf_counter()
+                ev = process(img, t, gumbel)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                return ev
+
+            pipe.process_image = timed
+            lk_pyramid.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            replay(root, cfg, None, pipe=pipe, progress_every=0, device=dev)
+            torch.cuda.synchronize()
+            replay_s = time.perf_counter() - t0
+            tag = "loop" if loop else "no_loop"
+            launches[tag] = lk_pyramid.launches
+            check(launches[tag] == len(ms) - 1,
+                  f"phase 8c: {tag}: {launches[tag]} lk_pyramid launches for {len(ms)} frames")
+            check(pipe.estimator._graph.captures == 1, f"phase 8c: {tag}: captures")
+            ate_vio = proxy.ate_rmse_tum(pipe.trajectory, gt.t, gt.p)
+            out[tag] = dict(frames=len(ms), poses=len(pipe.trajectory), replay_s=replay_s,
+                            frames_per_s=len(ms) / replay_s, failures=pipe.estimator.failures,
+                            ate_vio_m=ate_vio, frame_ms_median=float(np.median(ms)),
+                            frame_ms_p90=float(np.percentile(ms, 90)),
+                            frame_ms_max=float(np.max(ms)))
+            if not loop:
+                vio_off = list(pipe.trajectory)
+                continue
+            paths = [os.path.join(root, "out", f) for f in ("vins_result_no_loop.tum",
+                                                            "vins_result_loop.tum")]
+            os.makedirs(os.path.dirname(paths[0]))
+            pipe.write_trajectories(*paths)
+            lines = []
+            for path in paths:
+                with open(path) as f:
+                    lines.append(len(f.read().splitlines()))
+            done = [e for e in pipe.pg_events if "error" not in e]
+            errors = [e for e in pipe.pg_events if "error" in e]
+            stamps = [e["stamp"] for e in done]
+            ate_loop = proxy.ate_rmse_tum(pipe.trajectory_loop, gt.t, gt.p)
+            n_loops = sum(e.get("loop") is not None for e in done)
+            out[tag].update(ate_loop_m=ate_loop, loops=n_loops,
+                            n_optimizes=pipe.pose_graph.n_optimizes, keyframes=len(done),
+                            pg_dropped=pipe.pg_dropped, tum_lines=lines,
+                            pg_spans=pipe.pg_tracer.stats.snapshot())
+            log(f"phase 8c: looped replay of the {info['n_frames']}-frame tree (JAX on the same "
+                f"tree: VIO {JAX_LOOP_REPLAY['ate_vio_m']} m, corrected "
+                f"{JAX_LOOP_REPLAY['ate_loop_m']} m, {JAX_LOOP_REPLAY['loops']} loops): "
+                + json.dumps(out[tag]))
+            check(not errors, f"phase 8c: pose-graph worker errors {errors[:3]}")
+            check(pipe.estimator.failures == 0, "phase 8c: estimator failures")
+            check(n_loops >= 1, f"phase 8c: no loop; gates {[e.get('verify') for e in done][-20:]}")
+            check(pipe.pose_graph.n_optimizes >= 1, "phase 8c: no 4-DoF solve")
+            # the VIO is the main path's: with fast relocalization off the pose
+            # graph never reaches the estimator, so it must equal the loop-off
+            # replay's; its ATE against the test's 0.8 m is recorded (a main-
+            # path matter on this tree with the card's draws, ROADMAP Queue 3)
+            dp = max_dp(vio_off, pipe.trajectory)
+            out[tag].update(vio_vs_loop_off_max_dp_m=dp, vio_under_0_8_m=bool(ate_vio < 0.8))
+            check(np.isfinite(ate_vio) and dp <= 1e-6,
+                  f"phase 8c: VIO differs from the loop-off replay's by {dp} m")
+            check(ate_loop <= 1.15 * ate_vio + 0.02,
+                  f"phase 8c: corrected ATE {ate_loop} m > 1.15 × VIO {ate_vio} m + 0.02 m")
+            check(pipe._pg_queue.unfinished_tasks == 0, "phase 8c: the worker queue not drained")
+            check(not pipe._pg_thread.is_alive(), "phase 8c: the worker still runs")
+            check(pipe.pg_dropped <= len(done), f"phase 8c: {pipe.pg_dropped} keyframes dropped")
+            check(len(done) == len(pipe.pose_graph.keyframes),
+                  f"phase 8c: {len(done)} worker results for {len(pipe.pose_graph.keyframes)} "
+                  f"stored keyframes")
+            check(stamps == sorted(stamps), "phase 8c: worker results out of order")
+            check(lines == [len(pipe.trajectory), len(pipe.trajectory_loop)] and lines[0] > 0,
+                  f"phase 8c: TUM files of {lines} lines")
+    out["loop_off_replay_phase6"] = replay6
+    log(f"phase 8c: frame loop per frame (host clock, median / p90 / max): loop on, worker "
+        f"running {out['loop']['frame_ms_median']:.2f} / {out['loop']['frame_ms_p90']:.2f} / "
+        f"{out['loop']['frame_ms_max']:.2f} ms, loop off {out['no_loop']['frame_ms_median']:.2f} / "
+        f"{out['no_loop']['frame_ms_p90']:.2f} / {out['no_loop']['frame_ms_max']:.2f} ms; frames "
+        f"per second {out['loop']['frames_per_s']:.2f} against {out['no_loop']['frames_per_s']:.2f}"
+        f" (phase 6's 10 Hz tree, loop off: "
+        + (f"{replay6['frames_per_s']:.2f})" if replay6 else "phase 6 not run)"))
+    return launches, out
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
-    ap.add_argument("--phases", default="2,3,4,5,6,7",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8",
                     help="phases after the build to run; any other set than the default "
                          "prints no result lines")
     phases = {int(x) for x in ap.parse_args().phases.split(",")}
-    full = phases == {2, 3, 4, 5, 6, 7}
+    full = phases == {2, 3, 4, 5, 6, 7, 8}
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1602,6 +2080,18 @@ def main() -> int:
         loop = phase_loop(dev, card)
         log("phase 7: " + json.dumps({k: v for k, v in loop.items()
                                       if k not in ("times", "profile")}))
+
+    # ---- 8. loop closure inside the pipeline, the looped replay ----------------------
+    if 8 in phases:
+        frame5 = None
+        if 5 in phases:
+            frame5 = {"ms": pipeline["process_image_ms_per_vio_frame"],
+                      "frontend": pipeline["frontend_ms_per_vio_frame"],
+                      "estimator": pipeline["estimator_ms_per_vio_frame"]}
+        launches8, looped = phase_loop_pipeline(dev, frame5)
+        log("phase 8: " + json.dumps(looped))
+        launches8c, looped_replay = phase_loop_replay(dev, replayed if 6 in phases else None)
+        log("phase 8c: " + json.dumps(looped_replay))
     if not full:
         return 0
 
@@ -1612,6 +2102,8 @@ def main() -> int:
         dict(name="lk_pyramid", source="vins_tpu_torch/csrc/lk_pyramid.cu",
              launches=launches5["lk_pyramid"], max_abs_err=worst["lk_pyramid"],
              launches_front_end=launches["lk_pyramid"], launches_replay=launches6["lk_pyramid"],
+             launches_loop_serial=launches8["serial"], launches_loop_overlap=launches8["overlap"],
+             launches_loop_replay=launches8c["loop"],
              ms=t["lk_pyramid"], **common, launch_floor_ms=t["launch_floor"],
              warps_per_block=WARPS_PER_BLOCK,
              ms_by_warps_per_block={w: t[f"lk_pyramid_w{w}"] for w in WARPS},
@@ -1619,6 +2111,7 @@ def main() -> int:
         dict(name="lk_level", source="vins_tpu_torch/csrc/lk_level.cu",
              launches=launches5["lk_level"], max_abs_err=worst["lk_level"],
              launches_front_end=launches["lk_level"], launches_replay=launches6["lk_level"],
+             launches_loop_serial=launches8["lk_level"],
              ms=t["lk_level_x3"], **common, path_with_glue_ms=t["lk_level_path"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

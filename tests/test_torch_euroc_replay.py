@@ -89,7 +89,7 @@ def replayed(tree):
     torch.set_num_threads(4)  # the pipeline's image ops
     try:
         cfg = make_cfg()
-        pipe = proxy.make_pipeline(device="cpu", overlap=True)
+        pipe = proxy.make_pipeline(device="cpu", overlap=True, loop_closure=False)
         seen = []
         process = pipe.process_image
 

@@ -39,9 +39,9 @@ def runs():
         torch.set_num_threads(8)  # the renderer's 752×480 frames
         inp = proxy.proxy_inputs(duration=SECONDS, t0=T0, device="cpu")
         torch.set_num_threads(4)  # the pipelines' image ops
-        spipe = proxy.make_pipeline(device="cpu")
+        spipe = proxy.make_pipeline(device="cpu", loop_closure=False)
         serial = drive(spipe, inp)
-        pipe = proxy.make_pipeline(device="cpu", overlap=True)
+        pipe = proxy.make_pipeline(device="cpu", overlap=True, loop_closure=False)
         over = drive(pipe, inp)
         flushed = pipe.flush_frames()
     finally:

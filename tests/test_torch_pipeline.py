@@ -129,10 +129,13 @@ def test_ate_under_bound(runs):
 
 
 def test_unported_modes_raise():
-    """Loop closure is not ported (ROADMAP Queue 1 item 9); the overlapped
-    mode is (tests/test_torch_overlap.py)."""
-    cfg = dataclasses.replace(convert.vins_config(make_cfg()), loop_closure=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    """Of the modes of `Pipeline`, only the loop-match debug image is not
+    ported (ROADMAP Queue 1 item 12): it raises.  Loop closure
+    (tests/test_torch_pipeline_loop.py) and the overlapped mode
+    (tests/test_torch_overlap.py) are."""
+    cfg = dataclasses.replace(convert.vins_config(make_cfg()), loop_closure=True,
+                              debug_image=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         TPipeline(cfg, tproxy.euroc_camera(device="cpu"), device="cpu")
     pipe = TPipeline(convert.vins_config(make_cfg()), tproxy.euroc_camera(device="cpu"),
                      overlap=True, device="cpu")

@@ -67,7 +67,7 @@ def main() -> int:
         if name == "jax":
             pipe = jproxy.make_pipeline(loop_closure=False, dtype=jnp.float64)
         else:
-            pipe = tproxy.make_pipeline(device="cpu")
+            pipe = tproxy.make_pipeline(device="cpu", loop_closure=False)
         kinds, pub_t = [], []
         for fi, t in enumerate(inp.t):
             if fi > 0:

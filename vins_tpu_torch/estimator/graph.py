@@ -50,6 +50,7 @@ class StepGraph:
         self.prior = clone_prior(prior)
         self.out = None
         self.graphs: dict = {}
+        self.captures = 0
         self.replays = 0
 
     def load_prior(self, p: Prior) -> None:
@@ -78,6 +79,7 @@ class StepGraph:
                 self.out.copy_(self.pack(res))
                 copy_prior(self.prior, res.prior)
             self.graphs[marg_old] = g
+        self.captures += 1
 
     def replay(self, marg_old: bool) -> torch.Tensor:
         """One step on the static blob and prior; returns `out` (valid until

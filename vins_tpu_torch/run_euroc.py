@@ -1,16 +1,19 @@
-"""Replay a EuRoC sequence through the pipeline (loop closure off).
+"""Replay a EuRoC sequence through the full pipeline.
 
 Counterpart of `tools/run_euroc.py`, the reference's `roslaunch
 vins_estimator euroc.launch` with a rosbag played into it (README.md:66-89):
 a producer thread feeds the measurement queue, a prefetch thread decodes
-images ahead, and the main thread runs `Pipeline` in overlapped mode, on
-`cuda` unless asked for the CPU.
+images ahead, and the main thread runs `Pipeline` in overlapped mode with
+loop closure on (unless `--no-loop`) and the pose graph on its worker
+thread, on `cuda` unless asked for the CPU.
 
     python -m vins_tpu_torch.run_euroc <dataset_root> [--config config/euroc.yaml]
-        [--out DIR] [--max-frames N] [--device cuda|cpu]
+        [--out DIR] [--no-loop] [--max-frames N] [--device cuda|cpu]
 
-Writes DIR/vins_result_no_loop.tum (the reference's vins_result_no_loop.csv,
-vins_estimator/src/parameters.cpp:61, in TUM format).
+Writes DIR/vins_result_no_loop.tum and DIR/vins_result_loop.tum (the
+reference's vins_result_no_loop.csv and vins_result_loop.csv,
+vins_estimator/src/parameters.cpp:61, pose_graph_node.cpp:506, in TUM
+format; the second only with loop closure on).
 """
 from __future__ import annotations
 
@@ -59,12 +62,13 @@ def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
     return False
 
 
-def replay(root: str, cfg, cam, loop: bool = False, max_frames: int = 0,
+def replay(root: str, cfg, cam, loop: bool = True, max_frames: int = 0,
            progress_every: int = 100, pipe: Pipeline | None = None, device="cuda") -> Pipeline:
     """Replay a EuRoC-format directory: PNG decode (prefetch thread) →
-    measurement queue (producer thread) → front-end → estimator.  Returns
-    the Pipeline, its trajectory filled.  `pipe` replaces the Pipeline that
-    is otherwise built from `cfg` and `cam` on `device`."""
+    measurement queue (producer thread) → front-end → estimator → pose
+    graph (with `loop`).  Returns the Pipeline, its trajectories filled, its
+    pose-graph worker drained and stopped.  `pipe` replaces the Pipeline
+    that is otherwise built from `cfg` and `cam` on `device`."""
     if pipe is None:
         pipe = Pipeline(cfg, cam, loop_closure=loop, device=device)
     imu = load_imu(root)
@@ -133,24 +137,33 @@ def replay(root: str, cfg, cam, loop: bool = False, max_frames: int = 0,
     return pipe
 
 
-def main():
-    from .config import load_config
-    from .core.cameras import camera_from_yaml
-
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root")
     ap.add_argument("--config", default=DEFAULT_CONFIG)
     ap.add_argument("--out", default=".")
+    ap.add_argument("--no-loop", action="store_true", help="loop closure off")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    return ap.parse_args(argv)
 
-    cfg = dataclasses.replace(load_config(args.config), overlap=True, loop_closure=False)
+
+def main(argv=None) -> Pipeline:
+    from .config import load_config
+    from .core.cameras import camera_from_yaml
+
+    args = parse_args(argv)
+    # the pose graph runs on its worker thread, off the frame loop (the
+    # reference's separate pose_graph process)
+    cfg = dataclasses.replace(load_config(args.config), pg_async=True, overlap=True)
     cam = camera_from_yaml(cfg.camera, device=args.device)
-    pipe = replay(args.root, cfg, cam, max_frames=args.max_frames, device=args.device)
+    pipe = replay(args.root, cfg, cam, loop=not args.no_loop, max_frames=args.max_frames,
+                  device=args.device)
     os.makedirs(args.out, exist_ok=True)
-    pipe.write_trajectories(os.path.join(args.out, "vins_result_no_loop.tum"))
+    pipe.write_trajectories(os.path.join(args.out, "vins_result_no_loop.tum"),
+                            os.path.join(args.out, "vins_result_loop.tum"))
     print(f"done: {len(pipe.trajectory)} poses")
+    return pipe
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """The EuRoC-layout proxy: rendered frames + a noisy biased IMU.
 
-Counterpart of `vins_tpu/sim/proxy.py` (loop closure off): the EuRoC cam0
+Counterpart of `vins_tpu/sim/proxy.py`: the EuRoC cam0
 calibration (config/euroc.yaml), the body-to-camera extrinsic of the proxy
 runs, rendered frames of the textured room along `Trajectory.circuit`, the
 ground-truth epipolar error of published tracks, the proxy `Pipeline`
@@ -109,18 +109,32 @@ def track_quality(seq: Sequence, published: dict) -> dict:
                 frac_over_1px=float(np.mean(e > 1.0)))
 
 
-def make_pipeline(device="cuda", overlap: bool = False, cuda_graph: bool = True) -> Pipeline:
-    """The proxy's Pipeline (vins_tpu/sim/proxy.py:53-76, loop closure off):
-    752×480 EuRoC camera, 150 features, min_dist 30, publish at 10 Hz, 256
-    landmark slots, the forward extrinsic, the reference yaml's noise
-    densities (acc_n 0.08, gyr_n 0.004), 64-sample IMU intervals, float64
-    estimator; serial unless `overlap`."""
-    cfg = VinsConfig(
+def make_pipeline(device="cuda", overlap: bool = False, cuda_graph: bool = True,
+                  loop_closure: bool = True, pg_skip_first_cnt: int = 10,
+                  pg_async: bool = False, gumbel=None, **cfg_kw) -> Pipeline:
+    """The proxy's Pipeline (vins_tpu/sim/proxy.py:53-76): 752×480 EuRoC
+    camera, 150 features, min_dist 30, publish at 10 Hz, 256 landmark slots,
+    the forward extrinsic, the reference yaml's noise densities (acc_n 0.08,
+    gyr_n 0.004), 64-sample IMU intervals, float64 estimator; loop closure on
+    with the reference's MIN_LOOP_NUM 25 (keyframe.h:16) unless `cfg_kw`
+    says otherwise, the pose graph in line unless `pg_async`; serial unless
+    `overlap`.  `cfg_kw` sets any other `VinsConfig` field; `gumbel` goes to
+    the pose graph."""
+    cfg = make_config(loop_closure=loop_closure, pg_skip_first_cnt=pg_skip_first_cnt,
+                      pg_async=pg_async, **cfg_kw)
+    return Pipeline(cfg, euroc_camera(device=device), imu_buf_len=64, device=device,
+                    overlap=overlap, cuda_graph=cuda_graph, gumbel=gumbel)
+
+
+def make_config(loop_closure: bool = True, pg_skip_first_cnt: int = 10,
+                pg_async: bool = False, **cfg_kw) -> VinsConfig:
+    """The `VinsConfig` of `make_pipeline`."""
+    return VinsConfig(
         image_width=EUROC_W, image_height=EUROC_H, focal=460.0, max_cnt=150, min_dist=30,
         freq=10, max_landmarks=256, g_norm=9.81, extrinsic_R=R_IC_FORWARD,
-        extrinsic_t=tuple(TIC), acc_n=0.08, gyr_n=0.004, loop_closure=False)
-    return Pipeline(cfg, euroc_camera(device=device), imu_buf_len=64, device=device,
-                    overlap=overlap, cuda_graph=cuda_graph)
+        extrinsic_t=tuple(TIC), acc_n=0.08, gyr_n=0.004, loop_closure=loop_closure,
+        pg_skip_first_cnt=pg_skip_first_cnt, min_loop_num=cfg_kw.pop("min_loop_num", 25),
+        pg_async=pg_async, **cfg_kw)
 
 
 class ProxyInputs(NamedTuple):
@@ -136,18 +150,19 @@ class ProxyInputs(NamedTuple):
 
 
 def proxy_inputs(duration: float = 10.0, t0: float = 1.0, frame_hz: float = 10.0,
-                 device="cuda") -> ProxyInputs:
+                 device="cuda", room: Room | None = None) -> ProxyInputs:
     """The proxy run's inputs (vins_tpu/sim/proxy.py:79-155): frames at
     `frame_hz` from t0 of the textured room along `Trajectory.circuit`,
     rendered on `device` with Gaussian pixel noise from a seeded CPU
     generator (the same noise on every device), and the IMU between frames
     with white noise and a bias random walk drawn from
     `np.random.default_rng(SEED)` in the reference's order (per sample: ba
-    walk, bg walk, accelerometer noise, gyroscope noise)."""
+    walk, bg walk, accelerometer noise, gyroscope noise).  `room` replaces
+    the port's own room (`jax_proxy_room` gives the JAX proxy's)."""
     rng = np.random.default_rng(SEED)
     traj = Trajectory.circuit(radius=RADIUS, period=PERIOD, height=1.0)
     cam = euroc_camera(device=device)
-    ren = RoomRenderer(cam, EUROC_H, EUROC_W, room=Room.make(SEED + 7, k=TEX_K, device=device),
+    ren = RoomRenderer(cam, EUROC_H, EUROC_W, room=room or Room.make(SEED + 7, k=TEX_K, device=device),
                        tic=TIC, Ric=np.asarray(R_IC_FORWARD))
     gen = torch.Generator().manual_seed(SEED + 13)
 
@@ -188,12 +203,15 @@ class ProxyRun(NamedTuple):
     q_gt: np.ndarray     # [T,4] wxyz
     pipe: Pipeline
     events: list
+    n_loops: int         # verified loops in the pose graph's results
 
 
 def run_proxy(duration: float = 10.0, pipe: Pipeline | None = None,
               inputs: ProxyInputs | None = None, device="cuda") -> ProxyRun:
-    """The proxy run end to end (vins_tpu/sim/proxy.py:79-163, loop closure
-    off): per frame the IMU samples since the last frame, then the image."""
+    """The proxy run end to end (vins_tpu/sim/proxy.py:79-163): per frame
+    the IMU samples since the last frame, then the image; at the end the
+    pose-graph worker is drained, the pending 4-DoF solve forced and the
+    worker stopped."""
     pipe = pipe or make_pipeline(device=device)
     inp = inputs or proxy_inputs(duration=duration, device=device)
     ts, p_gt, q_gt, events = [], [], [], []
@@ -207,7 +225,10 @@ def run_proxy(duration: float = 10.0, pipe: Pipeline | None = None,
             p_gt.append(inp.p_gt[fi])
             q_gt.append(inp.q_gt[fi])
             events.append(ev)
-    return ProxyRun(np.asarray(ts), np.stack(p_gt), np.stack(q_gt), pipe, events)
+    pipe.pg_join()
+    pipe.shutdown()
+    n_loops = sum(1 for e in pipe.pg_events if e.get("loop") is not None)
+    return ProxyRun(np.asarray(ts), np.stack(p_gt), np.stack(q_gt), pipe, events, n_loops)
 
 
 def ate_rmse_tum(traj_est: list, t_gt, p_gt, align: str = "se3") -> float:
