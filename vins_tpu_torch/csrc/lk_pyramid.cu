@@ -1,5 +1,5 @@
-// Pyramidal Lucas-Kanade for a batch of features, every level in one
-// launch, for sm_90a.
+// Pyramidal Lucas-Kanade for a batch of features of S streams, every level
+// of every stream in one launch, for sm_90a.
 //
 // Replaces the TPU kernel vins_tpu/frontend/klt_pallas.py::lk_level_pallas
 // and this package's first port of it, csrc/lk_level.cu (one launch per
@@ -57,6 +57,26 @@
 //      replicate padding stores there, so no padded copies are made.
 // Every index is floored and clamped as in klt._lk_level (NaN -> 0), so no
 // position, not even junk in an invalid slot, reads outside an image.
+//
+// The stream axis.  The multi-stream pipeline (parallel/multistream.py)
+// tracks S independent camera streams in lock-step; the JAX package vmaps
+// its Pallas kernel over them, which adds a batch axis to the kernel's grid.
+// Here the stream is blockIdx.y: one launch runs every level of every
+// stream.  Level images are [S, H, W] (stream s at img + s * stride), and
+// pts, g_top, valid, g_out, ok_out and trace carry a leading [S] (feature f
+// of stream s is row s * n + f).  A warp does exactly the arithmetic it does
+// for one stream, so stream s of a batched launch is bitwise equal to a
+// launch on stream s's inputs alone, and the single-stream call is S = 1.
+// blockIdx.y and not a flattened index: the features of a stream stay
+// contiguous in blockIdx.x, and no division splits the block index.  The
+// work, and so the bound, is S times a stream's (S x the bytes and
+// operations chip_smoke.lk_bound counts for one frame); the launch floor
+// (~5 us, PERF.md) is paid once for all S streams.  A launch of one stream
+// instantiates the kernel with the stream fixed at 0, where the stream
+// arithmetic folds away: with it live, the level pointers become computed
+// values, and one stream's launch took 25.28 us against 23.55 us without
+// the axis (142 registers against 128; chip_smoke phase 4, both sources in
+// turns on one H100, PERF.md).
 #include <cuda_runtime.h>
 
 namespace {
@@ -71,8 +91,9 @@ constexpr int kMaxLevels = 4;
 constexpr int kMaxWarps = 8;
 
 struct Level {
-  const float* img0;  // [H, W] level of the previous frame, unpadded
-  const float* img1;  // [H, W] level of the current frame
+  const float* img0;  // [S, H, W] level of the previous frames, unpadded
+  const float* img1;  // [S, H, W] level of the current frames
+  long long stride;   // elements from one stream's image to the next
   int H, W;
   int search;         // search radius, capped as klt.lk_search_radius caps it
 };
@@ -80,15 +101,23 @@ struct Level {
 struct Params {
   Level lv[kMaxLevels];   // lv[l] is level l; level 0 is full resolution
   int levels;
-  const float* pts;       // [N, 2] positions in img0, level-0 pixels
-  const float* g_top;     // [N, 2] guesses at the top level, or null: pts / 2^(levels-1)
-  const unsigned char* valid;
-  int n, iters;
+  int streams;            // S
+  const float* pts;       // [S, N, 2] positions in img0, level-0 pixels
+  const float* g_top;     // [S, N, 2] guesses at the top level, or null: pts / 2^(levels-1)
+  const unsigned char* valid;  // [S, N]
+  int n, iters;           // n = N, the features of one stream
   float eps, min_eig_thresh;
-  float* g_out;           // [N, 2] tracked positions, level-0 pixels
-  unsigned char* ok_out;  // [N] ok at every level
-  float* trace;           // [N, levels, 4] per level: g, ok, steps run; or null
+  float* g_out;           // [S, N, 2] tracked positions, level-0 pixels
+  unsigned char* ok_out;  // [S, N] ok at every level
+  float* trace;           // [S, N, levels, 4] per level: g, ok, steps run; or null
 };
+
+// A level with its images moved to stream s.
+__device__ __forceinline__ Level at_stream(Level L, int s) {
+  L.img0 += s * L.stride;
+  L.img1 += s * L.stride;
+  return L;
+}
 
 __device__ __forceinline__ int floor_idx(float v) {
   // floor to an index; NaN -> 0 and junk clamped to +-1e9 first, as
@@ -141,12 +170,15 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
   }
 }
 
+template <bool kStreams>
 __global__ void __launch_bounds__(32 * kMaxWarps) lk_pyramid_kernel(const Params p) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (n >= p.n) return;  // the whole warp: nothing below needs the others
+  const int f = blockIdx.x * (blockDim.x >> 5) + warp;  // the feature in its stream
+  if (f >= p.n) return;  // the whole warp: nothing below needs the others
+  const int s = kStreams ? static_cast<int>(blockIdx.y) : 0;  // the stream
+  const int n = s * p.n + f;  // the feature's row in the [S, N] arrays
   float* tpl_patch = smem + warp * (p.levels * kP0 * kP0);  // levels x P0 x P0
 
   const float ptx = p.pts[2 * n], pty = p.pts[2 * n + 1];
@@ -154,7 +186,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) lk_pyramid_kernel(const Params
   // An invalid feature is never ok and never moves, so it needs no patches.
   if (valid) {
     for (int l = p.levels - 1; l >= 0; --l) {
-      const Level L = p.lv[l];
+      const Level L = at_stream(p.lv[l], s);
       const float s = static_cast<float>(1 << l);
       const int x0 = clampi(floor_idx(ptx / s) - kHalf - 1 + kPad, 0, L.W + 2 * kPad - kP0);
       const int y0 = clampi(floor_idx(pty / s) - kHalf - 1 + kPad, 0, L.H + 2 * kPad - kP0);
@@ -182,7 +214,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) lk_pyramid_kernel(const Params
   }
   bool ok_all = valid;
   for (int l = p.levels - 1; l >= 0; --l) {
-    const Level L = p.lv[l];
+    const Level L = at_stream(p.lv[l], s);
     int steps = 0;
     bool level_ok = false;
     if (valid) {
@@ -312,6 +344,7 @@ int launch(Kernel kernel, const Params& p, int warps_per_block, void* stream) {
   if (p.levels < 1 || p.levels > kMaxLevels || warps_per_block < 1
       || warps_per_block > kMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (p.streams < 1 || p.streams > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (p.n == 0) return 0;
   const size_t smem = smem_bytes(p.levels, warps_per_block);
   if (smem > 48 * 1024) {
@@ -319,20 +352,21 @@ int launch(Kernel kernel, const Params& p, int warps_per_block, void* stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int blocks = (p.n + warps_per_block - 1) / warps_per_block;
+  const dim3 blocks((p.n + warps_per_block - 1) / warps_per_block, p.streams);
   kernel<<<blocks, 32 * warps_per_block, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-Params make_params(const float* const* img0, const float* const* img1, const int* H,
-                   const int* W, const int* search, int levels, const float* pts,
-                   const float* g_top, const unsigned char* valid, int n, int iters,
-                   float eps, float min_eig_thresh, float* g_out, unsigned char* ok_out,
-                   float* trace) {
+Params make_params(const float* const* img0, const float* const* img1,
+                   const long long* stride, const int* H, const int* W, const int* search,
+                   int levels, int streams, const float* pts, const float* g_top,
+                   const unsigned char* valid, int n, int iters, float eps,
+                   float min_eig_thresh, float* g_out, unsigned char* ok_out, float* trace) {
   Params p{};
   for (int l = 0; l < levels && l < kMaxLevels; ++l)
-    p.lv[l] = Level{img0[l], img1[l], H[l], W[l], search[l]};
+    p.lv[l] = Level{img0[l], img1[l], stride[l], H[l], W[l], search[l]};
   p.levels = levels;
+  p.streams = streams;
   p.pts = pts;
   p.g_top = g_top;
   p.valid = valid;
@@ -356,27 +390,31 @@ extern "C" size_t lk_pyramid_smem_bytes(int levels, int warps_per_block) {
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// img0/img1/H/W/search hold one entry per level, level 0 first.
+// img0/img1/stride/H/W/search hold one entry per level, level 0 first;
+// `streams` image pairs per level, `n` features per stream.
 extern "C" int lk_pyramid_launch(const float* const* img0, const float* const* img1,
-                                 const int* H, const int* W, const int* search, int levels,
-                                 const float* pts, const float* g_top,
-                                 const unsigned char* valid, int n, int iters, float eps,
-                                 float min_eig_thresh, float* g_out, unsigned char* ok_out,
-                                 float* trace, int warps_per_block, void* stream) {
-  const Params p = make_params(img0, img1, H, W, search, levels, pts, g_top, valid, n, iters,
-                               eps, min_eig_thresh, g_out, ok_out, trace);
-  return launch(lk_pyramid_kernel, p, warps_per_block, stream);
+                                 const long long* stride, const int* H, const int* W,
+                                 const int* search, int levels, int streams, const float* pts,
+                                 const float* g_top, const unsigned char* valid, int n,
+                                 int iters, float eps, float min_eig_thresh, float* g_out,
+                                 unsigned char* ok_out, float* trace, int warps_per_block,
+                                 void* stream) {
+  const Params p = make_params(img0, img1, stride, H, W, search, levels, streams, pts, g_top,
+                               valid, n, iters, eps, min_eig_thresh, g_out, ok_out, trace);
+  return p.streams == 1 ? launch(lk_pyramid_kernel<false>, p, warps_per_block, stream)
+                         : launch(lk_pyramid_kernel<true>, p, warps_per_block, stream);
 }
 
 // The empty kernel, launched exactly as lk_pyramid_launch launches the real one.
 extern "C" int lk_pyramid_floor_launch(const float* const* img0, const float* const* img1,
-                                       const int* H, const int* W, const int* search,
-                                       int levels, const float* pts, const float* g_top,
+                                       const long long* stride, const int* H, const int* W,
+                                       const int* search, int levels, int streams,
+                                       const float* pts, const float* g_top,
                                        const unsigned char* valid, int n, int iters,
                                        float eps, float min_eig_thresh, float* g_out,
                                        unsigned char* ok_out, float* trace,
                                        int warps_per_block, void* stream) {
-  const Params p = make_params(img0, img1, H, W, search, levels, pts, g_top, valid, n, iters,
-                               eps, min_eig_thresh, g_out, ok_out, trace);
+  const Params p = make_params(img0, img1, stride, H, W, search, levels, streams, pts, g_top,
+                               valid, n, iters, eps, min_eig_thresh, g_out, ok_out, trace);
   return launch(lk_pyramid_floor_kernel, p, warps_per_block, stream);
 }

@@ -41,10 +41,10 @@ from ..loop.relocalize import relative_pose_4dof
 from ..solver.gn import SolverOptions
 from ..solver.problem import FeatureObs, Layout, Prior, WindowState
 from .feature_db import FeatureDB
-from .graph import StepGraph
+from .graph import BatchStepGraph, StepGraph, copy_prior, slot_prior, stack_priors
 from .initializer import Initializer
 from .propagator import midpoint_propagate_batch
-from .step import StepResult, make_vio_step
+from .step import StepResult, make_vio_step, where_prior
 
 INITIAL = 0
 NON_LINEAR = 1
@@ -326,9 +326,13 @@ class Estimator:
             out[name] = blob[o0:o1].reshape(shp) if shp else blob[o0]
         return out
 
-    def packed_step(self, blob: torch.Tensor, prior: Prior, marg_old: bool) -> StepResult:
-        """The device step on an uploaded blob (and the device prior)."""
+    def packed_step(self, blob: torch.Tensor, prior: Prior, marg_old: bool | None) -> StepResult:
+        """The device step on an uploaded blob (and the device prior).  With
+        `marg_old` None it is read from the blob as a bool tensor: both
+        marginalizations run and one is kept (the batched step's form)."""
         f = self._unpack(blob)
+        if marg_old is None:
+            marg_old = f["marg_old"] > 0.5
         state = WindowState(p=f["p"], q=f["q"], v=f["v"], ba=f["ba"], bg=f["bg"],
                             tic=f["tic"], qic=f["qic"], td=f["td"])
         obs = FeatureObs(pt=f["pt"], vel=f["vel"], toff=f["toff"], valid=f["valid"] > 0.5,
@@ -338,6 +342,22 @@ class Estimator:
                           obs, f["needs_tri"] > 0.5, prior, self.gravity, marg_old,
                           f["last_p"], f["relo_pq"][:3], f["relo_pq"][3:7], f["relo_pt"],
                           f["relo_valid"] > 0.5, f["relo_on"])
+
+    def batched_step(self, inp: torch.Tensor, prior: Prior):
+        """The step of S streams at once (the multi-stream pipeline's):
+        `inp` [S, D+1] holds each stream's blob and, last, its selection
+        flag; `prior` is the stacked prior.  `torch.func.vmap` of
+        `packed_step` with `marg_old` read from each blob.  Returns (the
+        packed results [S, R], the stacked prior with the new prior in the
+        selected streams' slots and the old one elsewhere)."""
+        blob, sel = inp[:, :-1], inp[:, -1] > 0.5
+
+        def one(b, p):
+            res = self.packed_step(b, p, None)
+            return self._pack_result(res), res.prior
+
+        out, new = torch.func.vmap(one)(blob, prior)
+        return out, where_prior(sel, new, prior)
 
     def _stage(self, blob: np.ndarray):
         """Host half of the upload: the blob into the pinned buffer, once
@@ -693,3 +713,83 @@ class Estimator:
         if bool(ok):
             self.qic = q_ic.cpu().numpy()
             self.estimate_extrinsic = 1
+
+
+class BatchedStep:
+    """The VIO step of S lock-step streams on one device program: the host
+    half of `Estimator.batched_step`, over a stacked prior that stays on the
+    device.  `dispatch` uploads the S blobs and the selection in one copy,
+    runs the step (one CUDA graph replay on CUDA, captured on the first
+    dispatch) and starts the copy of the results to the host; `fetch` waits
+    for it.  With `sync_check` on CUDA, from the upload to the start of the
+    result copy runs under sync-debug mode "error".  On the CPU the step
+    runs eagerly."""
+
+    def __init__(self, est: Estimator, S: int):
+        self.est, self.S = est, S
+        self.device, self.dtype = est.device, est.dtype
+        self.sync_check = False
+        empty = Prior.empty(est.layout, est.dtype, est.device)
+        self._graph = (BatchStepGraph(est.batched_step, S, est._offs[-1], empty)
+                       if self.device.type == "cuda" else None)
+        self.prior = self._graph.prior if self._graph is not None else stack_priors([empty] * S)
+        self._pinned = None
+        self._upload_done = None
+        self._host_out = None
+        self.dispatches = 0
+
+    @property
+    def replays(self) -> int:
+        return 0 if self._graph is None else self._graph.replays
+
+    @property
+    def captures(self) -> int:
+        return 0 if self._graph is None else self._graph.captures
+
+    def set_prior(self, s: int, prior: Prior) -> None:
+        """Stream s's slot of the stacked prior ← prior, in place."""
+        copy_prior(slot_prior(self.prior, s), prior)
+
+    def dispatch(self, blobs: np.ndarray, sel: np.ndarray) -> PendingStep:
+        """blobs [S, D] (zeros in the slots of streams outside the batch),
+        sel [S] bool: the streams whose prior slot takes the new prior."""
+        inp = np.concatenate([blobs, np.asarray(sel, blobs.dtype)[:, None]], axis=1)
+        self.dispatches += 1
+        if self.device.type != "cuda":
+            out, self.prior = self.est.batched_step(
+                torch.from_numpy(inp).to(self.device, self.dtype), self.prior)
+            return PendingStep(out, None, False)
+        if self._pinned is None:
+            self._pinned = torch.empty(inp.shape, dtype=self.dtype, pin_memory=True)
+        elif self._upload_done is not None:
+            self._upload_done.synchronize()
+        self._pinned.numpy()[:] = inp
+        graph = self._graph
+        if graph.graph is None:
+            graph.inp.copy_(self._pinned, non_blocking=True)
+            graph.capture()  # synchronizes: outside the sync check
+        check = self.sync_check
+        if check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.inp.copy_(self._pinned, non_blocking=True)
+            self._upload_done = torch.cuda.Event()
+            self._upload_done.record()
+            out = graph.replay()
+            if self._host_out is None:
+                self._host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self._host_out.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        finally:
+            if check:
+                torch.cuda.set_sync_debug_mode("default")
+        return PendingStep(self._host_out, event, False)
+
+    def fetch(self, pending: PendingStep) -> list:
+        """Wait for a dispatched step's results: one StepResult (numpy
+        fields, prior None) per stream."""
+        if pending.event is not None:
+            pending.event.synchronize()
+        flat = pending.host.numpy()
+        return [self.est._unpack_result(flat[s]) for s in range(self.S)]

@@ -19,6 +19,12 @@ their memory pools:
   * `out`: the packed result, copied to the host after each replay.
 
 A capture that fails raises; there is no eager fallback.
+
+`BatchStepGraph` is the multi-stream pipeline's: one graph for S streams
+over a static [S, D+1] input (the S blobs, each with its selection flag) and
+a static stacked prior, of which only the selected streams' slots take the
+new prior (`vins_tpu/parallel/multistream.py:176-195`'s `where(sel, new,
+old)`), so a zero-blob slot's garbage never reaches a kept prior.
 """
 from __future__ import annotations
 
@@ -85,5 +91,61 @@ class StepGraph:
         """One step on the static blob and prior; returns `out` (valid until
         the next replay)."""
         self.graphs[bool(marg_old)].replay()
+        self.replays += 1
+        return self.out
+
+
+def stack_priors(priors) -> Prior:
+    """The stacked prior [S, ...] of S streams' priors."""
+    return Prior(J=torch.stack([p.J for p in priors]), r0=torch.stack([p.r0 for p in priors]),
+                 lin=WindowState(*[torch.stack(xs) for xs in zip(*[p.lin for p in priors])]),
+                 valid=torch.stack([p.valid for p in priors]))
+
+
+def slot_prior(stacked: Prior, s: int) -> Prior:
+    """Stream s's prior in a stacked prior (views)."""
+    return Prior(J=stacked.J[s], r0=stacked.r0[s], lin=WindowState(*[x[s] for x in stacked.lin]),
+                 valid=stacked.valid[s])
+
+
+class BatchStepGraph:
+    """The graph of `step(inp, prior) -> (out, kept prior)` for S streams,
+    over static tensors: `inp` [S, D+1] (blob and selection flag per
+    stream), the stacked `prior`, and `out` [S, R], the packed results."""
+
+    WARMUP = 2
+
+    def __init__(self, step, S: int, blob_numel: int, prior: Prior):
+        self.step = step
+        dt, dev = prior.J.dtype, prior.J.device
+        self.inp = torch.zeros((S, blob_numel + 1), dtype=dt, device=dev)
+        self.prior = stack_priors([prior] * S)
+        self.out = None
+        self.graph = None
+        self.captures = 0
+        self.replays = 0
+
+    def capture(self) -> None:
+        """Capture the graph from the input and prior now in the static
+        tensors (the warm-up runs read them; only a replay writes the
+        prior).  Synchronizes the device."""
+        side = torch.cuda.Stream(device=self.inp.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                out, _ = self.step(self.inp, self.prior)
+        torch.cuda.current_stream().wait_stream(side)
+        self.out = torch.empty_like(out)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out, kept = self.step(self.inp, self.prior)
+            self.out.copy_(out)
+            copy_prior(self.prior, kept)
+        self.graph = g
+        self.captures += 1
+
+    def replay(self) -> torch.Tensor:
+        """One batched step; returns `out` (valid until the next replay)."""
+        self.graph.replay()
         self.replays += 1
         return self.out

@@ -14,6 +14,11 @@ with no host read-back between the blob upload and the result fetch:
   5. failure metrics (failureDetection, estimator.cpp:621-667),
   6. the marginalization prior for the upcoming slide (MARGIN_OLD or
      MARGIN_SECOND_NEW, chosen on the host: `marg_old` is a Python bool).
+
+The batched form (the multi-stream pipeline) vmaps the step over streams
+that slide differently: there `marg_old` is a bool tensor, both priors are
+computed and one is kept per stream, as JAX's `lax.cond` becomes a select
+under `vmap`.
 """
 from __future__ import annotations
 
@@ -41,6 +46,17 @@ class StepResult(NamedTuple):
     # when the step was built without the relo block
     relo_p: torch.Tensor | None = None
     relo_q: torch.Tensor | None = None
+
+
+def where_prior(c: torch.Tensor, a: Prior, b: Prior) -> Prior:
+    """a where c, else b, field by field; c is a bool of the leading dims
+    (0-dim for one stream, [S] for stacked priors)."""
+    def pick(x, y):
+        return torch.where(c.reshape(c.shape + (1,) * (x.dim() - c.dim())), x, y)
+
+    return Prior(J=pick(a.J, b.J), r0=pick(a.r0, b.r0),
+                 lin=WindowState(*[pick(x, y) for x, y in zip(a.lin, b.lin)]),
+                 valid=pick(a.valid, b.valid))
 
 
 def triangulate_depths(state: WindowState, obs: FeatureObs) -> torch.Tensor:
@@ -139,11 +155,15 @@ def make_vio_step(layout: Layout, noise: ImuNoise, opts: SolverOptions,
         dp = solved.p[F - 1] - last_p
         fail_jump = (norm(dp) > 5.0) | (torch.abs(dp[2]) > 1.0)
 
-        # 6. marginalize for the slide
-        if marg_old:
-            prior_new = marginalize_old(solved, obs2._replace(inv_depth=lam), pres, prior,
-                                        gravity, layout, focal=opts.focal,
-                                        max_imu_dt=opts.max_imu_dt)
+        # 6. marginalize for the slide (a bool tensor: both, one kept)
+        def old():
+            return marginalize_old(solved, obs2._replace(inv_depth=lam), pres, prior, gravity,
+                                   layout, focal=opts.focal, max_imu_dt=opts.max_imu_dt)
+
+        if torch.is_tensor(marg_old):
+            prior_new = where_prior(marg_old, old(), marginalize_second_new(prior, layout))
+        elif marg_old:
+            prior_new = old()
         else:
             prior_new = marginalize_second_new(prior, layout)
         return StepResult(state=solved, inv_depth=lam, prior=prior_new, cost0=info.cost0,

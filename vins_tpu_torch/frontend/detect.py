@@ -4,6 +4,8 @@ PyTorch counterpart of `vins_tpu/frontend/detect.py`: the replacement for
 cv::goodFeaturesToTrack(MAX_CNT, 0.01, MIN_DIST) plus the reference's mask
 suppression (feature_tracker.cpp:36-69, :149), re-expressed as one winner
 per MIN_DIST cell with cells at or next to a tracked feature suppressed.
+Both functions take one image or a stack [S,H,W] of independent streams'
+images, ranked stream by stream.
 """
 from __future__ import annotations
 
@@ -12,10 +14,10 @@ import torch.nn.functional as F
 
 
 def _shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """out[i, j] = x[i+dy, j+dx], zero outside."""
-    H, W = x.shape
+    """out[..., i, j] = x[..., i+dy, j+dx], zero outside."""
+    H, W = x.shape[-2:]
     xp = F.pad(x, (1, 1, 1, 1))
-    return xp[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+    return xp[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
 
 
 def _conv3x3_shifted(x: torch.Tensor, k) -> torch.Tensor:
@@ -34,7 +36,7 @@ def _conv3x3_shifted(x: torch.Tensor, k) -> torch.Tensor:
 
 def shi_tomasi_response(img: torch.Tensor) -> torch.Tensor:
     """Min-eigenvalue corner response (cv::cornerMinEigenVal, Sobel 3 +
-    3×3 block sum), [H,W]."""
+    3×3 block sum), [H,W] (or [S,H,W])."""
     sx = [[-1 / 8.0, 0.0, 1 / 8.0], [-2 / 8.0, 0.0, 2 / 8.0], [-1 / 8.0, 0.0, 1 / 8.0]]
     sy = [list(r) for r in zip(*sx)]
     box = [[1.0] * 3] * 3
@@ -56,9 +58,9 @@ def top_k_stable(x: torch.Tensor, k: int):
 
 
 def detect_grid(
-    response: torch.Tensor,        # [H,W]
-    existing: torch.Tensor,        # [M,2] tracked feature positions (x, y)
-    existing_valid: torch.Tensor,  # [M]
+    response: torch.Tensor,        # [H,W] (or [S,H,W])
+    existing: torch.Tensor,        # [M,2] (or [S,M,2]) tracked feature positions (x, y)
+    existing_valid: torch.Tensor,  # [M] (or [S,M])
     max_new: int,
     cell: int = 30,                # MIN_DIST
     quality: float = 0.01,
@@ -66,11 +68,16 @@ def detect_grid(
 ):
     """Top-`max_new` new corners: per-cell argmax, cells within one ring of an
     existing feature suppressed, response ≥ quality·global-max, ranked by
-    response.  Returns (pts [max_new,2], ok [max_new])."""
-    H, W = response.shape
+    response.  Returns (pts [max_new,2], ok [max_new]), with a leading [S]
+    for a stack (each stream against its own features and maximum)."""
+    if response.dim() == 2:
+        pts, ok = detect_grid(response[None], existing[None], existing_valid[None], max_new,
+                              cell, quality, border)
+        return pts[0], ok[0]
+    S, H, W = response.shape
     dev = response.device
     gh, gw = H // cell, W // cell
-    r = response[: gh * cell, : gw * cell]
+    r = response[:, : gh * cell, : gw * cell]
 
     ys = torch.arange(gh * cell, device=dev)
     xs = torch.arange(gw * cell, device=dev)
@@ -78,24 +85,28 @@ def detect_grid(
              & (xs[None, :] >= border) & (xs[None, :] < W - border))
     r = torch.where(bmask, r, torch.full_like(r, -torch.inf))
 
-    cells = r.reshape(gh, cell, gw, cell).permute(0, 2, 1, 3).reshape(gh, gw, -1)
+    cells = r.reshape(S, gh, cell, gw, cell).permute(0, 1, 3, 2, 4).reshape(S, gh, gw, -1)
     best_val, best = torch.max(cells, dim=-1)  # first maximum, as jnp.argmax
     by = best // cell + torch.arange(gh, device=dev)[:, None] * cell
     bx = best % cell + torch.arange(gw, device=dev)[None, :] * cell
 
     # occupancy: cells holding or neighbouring an existing feature.  A max
     # scatter, so a duplicate invalid slot cannot clear a valid one's cell.
-    ex = torch.clamp(torch.nan_to_num(existing[:, 0] / cell).floor(), 0, gw - 1).long()
-    ey = torch.clamp(torch.nan_to_num(existing[:, 1] / cell).floor(), 0, gh - 1).long()
-    occ = torch.zeros(gh * gw, dtype=response.dtype, device=dev)
-    occ = occ.scatter_reduce(0, ey * gw + ex, existing_valid.to(response.dtype), "amax")
-    occ = F.max_pool2d(occ.reshape(1, 1, gh, gw), 3, stride=1, padding=1)[0, 0] > 0
+    ex = torch.clamp(torch.nan_to_num(existing[..., 0] / cell).floor(), 0, gw - 1).long()
+    ey = torch.clamp(torch.nan_to_num(existing[..., 1] / cell).floor(), 0, gh - 1).long()
+    at = (torch.arange(S, device=dev)[:, None] * gh + ey) * gw + ex
+    occ = torch.zeros(S * gh * gw, dtype=response.dtype, device=dev)
+    occ = occ.scatter_reduce(0, at.reshape(-1), existing_valid.to(response.dtype).reshape(-1),
+                             "amax")
+    occ = F.max_pool2d(occ.reshape(S, 1, gh, gw), 3, stride=1, padding=1)[:, 0] > 0
 
     finite = torch.isfinite(best_val)
-    thresh = quality * torch.max(torch.where(finite, best_val, torch.zeros_like(best_val)))
+    peak = torch.where(finite, best_val, torch.zeros_like(best_val)).reshape(S, -1).amax(-1)
+    thresh = quality * peak[:, None, None]
     good = (~occ) & (best_val > thresh) & finite
 
-    flat_val = torch.where(good, best_val, torch.full_like(best_val, -torch.inf)).reshape(-1)
+    flat_val = torch.where(good, best_val, torch.full_like(best_val, -torch.inf)).reshape(S, -1)
     vals, idx = top_k_stable(flat_val, max_new)
-    pts = torch.stack([bx.reshape(-1)[idx], by.reshape(-1)[idx]], dim=-1).to(response.dtype)
+    pts = torch.stack([torch.gather(bx.reshape(S, -1), 1, idx),
+                       torch.gather(by.reshape(S, -1), 1, idx)], dim=-1).to(response.dtype)
     return pts, torch.isfinite(vals)

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of `vins_tpu/frontend/image.py` (the OpenCV calls of
 the reference front-end: CLAHE at feature_tracker.cpp:87-93 and the
-pyrDown inside pyramidal LK at :113).
+pyrDown inside pyramidal LK at :113).  The pyramid, the padding and CLAHE
+take [H,W] images or a stack [S,H,W] of independent streams' images.
 """
 from __future__ import annotations
 
@@ -28,13 +29,13 @@ def bilinear(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 
 
 def _shift_rows(x: torch.Tensor, d: int) -> torch.Tensor:
-    """out[i] = x[i+d], zero-filled at the borders."""
+    """out[..., i, :] = x[..., i+d, :], zero-filled at the borders."""
     if d == 0:
         return x
-    z = torch.zeros((abs(d),) + x.shape[1:], dtype=x.dtype, device=x.device)
+    z = torch.zeros(x.shape[:-2] + (abs(d), x.shape[-1]), dtype=x.dtype, device=x.device)
     if d > 0:
-        return torch.cat([x[d:], z])
-    return torch.cat([z, x[:d]])
+        return torch.cat([x[..., d:, :], z], dim=-2)
+    return torch.cat([z, x[..., :d, :]], dim=-2)
 
 
 _PYR_TAPS = ((1 / 16.0, -2), (4 / 16.0, -1), (6 / 16.0, 0), (4 / 16.0, 1), (1 / 16.0, 2))
@@ -45,9 +46,9 @@ def pyr_down(img: torch.Tensor) -> torch.Tensor:
     5-tap stencil of shifted rows with zero padding, summed in the
     reference's order."""
     v = sum(w * _shift_rows(img, d) for w, d in _PYR_TAPS)
-    vt = v.T
+    vt = v.transpose(-1, -2)
     h = sum(w * _shift_rows(vt, d) for w, d in _PYR_TAPS)
-    return h.T[::2, ::2].contiguous()
+    return h.transpose(-1, -2)[..., ::2, ::2].contiguous()
 
 
 def build_pyramid(img: torch.Tensor, levels: int = 3):
@@ -59,8 +60,11 @@ def build_pyramid(img: torch.Tensor, levels: int = 3):
 
 
 def edge_pad(img: torch.Tensor, pad: int) -> torch.Tensor:
-    """Replicate-pad a [H,W] image by `pad` on every side."""
-    return F.pad(img[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
+    """Replicate-pad a [H,W] image (or each of [S,H,W]) by `pad` on every
+    side."""
+    H, W = img.shape[-2:]
+    out = F.pad(img.reshape(-1, 1, H, W), (pad, pad, pad, pad), mode="replicate")
+    return out.reshape(img.shape[:-2] + (H + 2 * pad, W + 2 * pad))
 
 
 def clahe(img: torch.Tensor, clip_limit: float = 3.0, tiles: int = 8,
@@ -70,20 +74,24 @@ def clahe(img: torch.Tensor, clip_limit: float = 3.0, tiles: int = 8,
     histograms, clipped excess redistributed uniformly, and each pixel's
     mapping bilinearly interpolated between its four nearest tile LUTs.
     The histograms are one `scatter_add_` over tile-major bin indices (exact:
-    float32 counts of ones; `bincount` would read its max back to the host)."""
-    H, W = img.shape
+    float32 counts of ones; `bincount` would read its max back to the host).
+    A stack [S,H,W] is equalized image by image, in the same ops."""
+    H, W = img.shape[-2:]
+    lead = img.shape[:-2]
+    B = img[..., 0, 0].numel()  # images in the stack
     dt = torch.float32
     dev = img.device
     th, tw = H // tiles, W // tiles
-    x = img[: th * tiles, : tw * tiles].to(dt)
+    x = img[..., : th * tiles, : tw * tiles].to(dt).reshape(B, th * tiles, tw * tiles)
 
     bins = torch.clamp((x * (nbins / 256.0)).to(torch.int32), 0, nbins - 1).long()
     tile = ((torch.arange(th * tiles, device=dev) // th)[:, None] * tiles
             + (torch.arange(tw * tiles, device=dev) // tw)[None, :])
+    tile = torch.arange(B, device=dev)[:, None, None] * (tiles * tiles) + tile
     flat = (tile * nbins + bins).reshape(-1)
-    hist = torch.zeros(tiles * tiles * nbins, dtype=dt, device=dev)
+    hist = torch.zeros(B * tiles * tiles * nbins, dtype=dt, device=dev)
     hist = hist.scatter_add_(0, flat, torch.ones_like(flat, dtype=dt))
-    hist = hist.reshape(tiles * tiles, nbins)
+    hist = hist.reshape(B * tiles * tiles, nbins)
 
     # clip + redistribute (OpenCV semantics: limit scaled by tile size)
     limit = max(clip_limit * th * tw / nbins, 1.0)
@@ -92,18 +100,20 @@ def clahe(img: torch.Tensor, clip_limit: float = 3.0, tiles: int = 8,
 
     cdf = torch.cumsum(hist, dim=1)
     lut = (cdf - cdf[:, :1]) / torch.clamp(cdf[:, -1:] - cdf[:, :1], min=1.0) * 255.0
-    lut = lut.reshape(tiles, tiles, nbins)
+    lut = lut.reshape(B, tiles, tiles, nbins)
 
     out = _apply_lut_gather(bins, lut, tiles, th, tw, dt)
     full = img.to(dt).clone()
-    full[: th * tiles, : tw * tiles] = out
+    full[..., : th * tiles, : tw * tiles] = out.reshape(lead + out.shape[-2:])
     return full
 
 
 def _apply_lut_gather(bins, lut, tiles, th, tw, dt):
     """Bilinear interpolation of the 4 neighbouring tile LUTs, one gather
-    per pixel per corner (`_apply_lut_gather` of the reference)."""
+    per pixel per corner (`_apply_lut_gather` of the reference); bins
+    [B,h,w] index lut [B,tiles,tiles,nbins]."""
     dev = bins.device
+    b = torch.arange(bins.shape[0], device=dev)[:, None, None]
     yy = (torch.arange(th * tiles, dtype=dt, device=dev) + 0.5) / th - 0.5
     xx = (torch.arange(tw * tiles, dtype=dt, device=dev) + 0.5) / tw - 0.5
     y0 = torch.clamp(torch.floor(yy).long(), 0, tiles - 1)
@@ -114,7 +124,7 @@ def _apply_lut_gather(bins, lut, tiles, th, tw, dt):
     fx = torch.clamp(xx - x0, 0.0, 1.0)[None, :]
 
     def g(ty, tx):
-        return lut[ty[:, None], tx[None, :], bins]
+        return lut[b, ty[None, :, None], tx[None, None, :], bins]
 
     return (g(y0, x0) * (1 - fy) * (1 - fx) + g(y0, x1) * (1 - fy) * fx
             + g(y1, x0) * fy * (1 - fx) + g(y1, x1) * fy * fx)

@@ -9,7 +9,10 @@ OpenCV's min-eigenvalue and border checks.
 `_lk_level` is the plain version of one level and `_lk_pyramid` chains it
 over the levels.  `lk_pyramidal` sends the whole pyramid through
 `klt_cuda.lk_pyramid`, which launches one CUDA kernel for all levels on
-tensors on the card and runs `_lk_pyramid` for tensors on the CPU.
+tensors on the card and runs `_lk_pyramid` for tensors on the CPU.  Both
+take a leading stream axis (images [S,H,W], points [S,N,2]): the
+multi-stream pipeline tracks S streams in one launch, where the JAX package
+vmaps its kernel.
 """
 from __future__ import annotations
 
@@ -133,7 +136,14 @@ def _lk_pyramid(pyr0, pyr1, pts, valid, g=None, win: int = 21, iters: int = 10,
     number of levels.  g [N,2] is the guess at the top level (pts scaled to
     it by default) and `searches` the radius of each level
     (`level_searches`).  Returns (g [N,2] at level 0, ok [N] of every
-    level)."""
+    level).  With a leading stream axis (level images [S,H,W], pts/g
+    [S,N,2], valid [S,N]) each stream runs on its own, as the kernel runs
+    them: the results are [S,N,2] and [S,N]."""
+    if pts.dim() == 3:
+        outs = [_lk_pyramid([p[s] for p in pyr0], [p[s] for p in pyr1], pts[s], valid[s],
+                            None if g is None else g[s], win, iters, eps, min_eig_thresh,
+                            searches) for s in range(pts.shape[0])]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
     levels = len(pyr0)
     pad = win // 2 + 2
     searches = level_searches(levels) if searches is None else searches
@@ -150,10 +160,10 @@ def _lk_pyramid(pyr0, pyr1, pts, valid, g=None, win: int = 21, iters: int = 10,
 
 
 def lk_pyramidal(
-    img0: torch.Tensor,   # [H,W] previous frame (CLAHE'd, float)
-    img1: torch.Tensor,   # [H,W] current frame
-    pts: torch.Tensor,    # [N,2] feature positions in img0 (x, y)
-    valid: torch.Tensor,  # [N] bool
+    img0: torch.Tensor,   # [H,W] (or [S,H,W]) previous frame (CLAHE'd, float)
+    img1: torch.Tensor,   # [H,W] (or [S,H,W]) current frame
+    pts: torch.Tensor,    # [N,2] (or [S,N,2]) feature positions in img0 (x, y)
+    valid: torch.Tensor,  # [N] (or [S,N]) bool
     win: int = 21,
     levels: int = 3,
     iters: int = 10,
@@ -161,14 +171,15 @@ def lk_pyramidal(
     min_eig_thresh: float = 1e-4,
     border: int = 1,
 ):
-    """Track pts from img0 to img1.  Returns (pts1 [N,2], status [N]).
+    """Track pts from img0 to img1.  Returns (pts1 [N,2], status [N]), with
+    a leading [S] when the inputs have one (every stream in one launch).
 
     Status false ⇔ invalid input, degenerate gradient structure, or tracked
     out of border (inBorder, feature_tracker.cpp:5-11).  The levels search
     as `level_searches` says."""
     from .klt_cuda import lk_pyramid
 
-    H, W = img0.shape
+    H, W = img0.shape[-2:]
     dtype = pts.dtype
     pyr0 = build_pyramid(img0.to(dtype).contiguous(), levels)
     pyr1 = build_pyramid(img1.to(dtype).contiguous(), levels)
@@ -178,6 +189,6 @@ def lk_pyramidal(
     # OpenCV rejects points whose integration window leaves the image; the
     # reference then applies its own 1-px inBorder test on top
     m = max(border, win // 2 + 1)
-    in_border = ((g[:, 0] >= m) & (g[:, 0] < W - m)
-                 & (g[:, 1] >= m) & (g[:, 1] < H - m))
+    in_border = ((g[..., 0] >= m) & (g[..., 0] < W - m)
+                 & (g[..., 1] >= m) & (g[..., 1] < H - m))
     return g, ok & in_border

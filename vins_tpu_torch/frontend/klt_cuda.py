@@ -3,7 +3,8 @@
 Both replace `vins_tpu/frontend/klt_pallas.py::lk_level_pallas`.
 `lk_pyramid` (`csrc/lk_pyramid.cu`) runs every level in one launch and
 holds the semantics of `klt._lk_pyramid`; the main path
-(`klt.lk_pyramidal`) goes through it.  `lk_level` (`csrc/lk_level.cu`) runs
+(`klt.lk_pyramidal`) goes through it, for one stream or, with a leading
+stream axis, for all S streams of the multi-stream pipeline in one launch.  `lk_level` (`csrc/lk_level.cu`) runs
 one level per launch and holds those of `klt._lk_level`; it is off the main
 path, kept as the baseline that `chip_smoke.py` times the new kernel
 against.  A call on CPU tensors runs the plain version; a call on CUDA
@@ -103,9 +104,12 @@ class LKPyramid:
     """`lk_pyramid(pyr0, pyr1, pts, valid, g=None, ...)` → (g [N,2], ok [N]),
     the arguments and results of `klt._lk_pyramid`: unpadded level images,
     level 0 first, as many as the levels to run (one level on its own is a
-    one-element list with its guess `g`).
+    one-element list with its guess `g`).  With a leading stream axis
+    (level images [S,H,W], pts/g [S,N,2], valid [S,N]) every stream runs in
+    the same launch → ([S,N,2], [S,N]).
 
-    `launches` counts kernel launches (not plain-version calls)."""
+    `launches` counts kernel launches (not plain-version calls): one per
+    call, whatever S."""
 
     def __init__(self):
         self.launches = 0
@@ -118,9 +122,10 @@ class LKPyramid:
             lib = build.load("lk_pyramid")
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             pp, pi = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+            pl = ctypes.POINTER(ctypes.c_longlong)
             for fn in (lib.lk_pyramid_launch, lib.lk_pyramid_floor_launch):
-                fn.argtypes = [pp, pp, pi, pi, pi, ci, vp, vp, vp, ci, ci, cf, cf, vp, vp, vp,
-                               ci, vp]
+                fn.argtypes = [pp, pp, pl, pi, pi, pi, ci, ci, vp, vp, vp, ci, ci, cf, cf, vp,
+                               vp, vp, ci, vp]
                 fn.restype = ci
             for fn in (lib.lk_pyramid_win, lib.lk_pyramid_max_levels, lib.lk_pyramid_max_warps):
                 fn.argtypes = []
@@ -142,15 +147,19 @@ class LKPyramid:
                eps: float = 0.01, min_eig_thresh: float = 1e-4, searches=None, *,
                trace=None, warps_per_block: int = WARPS_PER_BLOCK, floor: bool = False):
         """Launches the kernel.  `trace`, a float32 [N, levels, 4] CUDA
-        tensor, receives per feature and level the level's result g (before
-        the doubling to the next level), its ok and the steps it ran.  `floor`
-        launches an empty kernel of the same grid, block, shared memory and
-        argument instead (the launch floor), which is not counted."""
+        tensor ([S, N, levels, 4] with a stream axis), receives per feature
+        and level the level's result g (before the doubling to the next
+        level), its ok and the steps it ran.  `floor` launches an empty
+        kernel of the same grid, block, shared memory and argument instead
+        (the launch floor), which is not counted."""
         dev = pts.device
         if dev.type != "cuda":
             raise ValueError(f"lk_pyramid kernel needs CUDA tensors, got {dev}")
         lib = self._library()
-        levels, N = len(pyr0), pts.shape[0]
+        batched = pts.dim() == 3
+        lead = tuple(pts.shape[:1]) if batched else ()  # (S,) or ()
+        S = lead[0] if batched else 1
+        levels, N = len(pyr0), pts.shape[-2]
         if not 1 <= levels <= lib.lk_pyramid_max_levels() or len(pyr1) != levels:
             raise ValueError(f"lk_pyramid: {levels} / {len(pyr1)} levels, at most "
                              f"{lib.lk_pyramid_max_levels()}, as many in both pyramids")
@@ -161,30 +170,33 @@ class LKPyramid:
             raise ValueError(f"lk_pyramid: warps_per_block {warps_per_block} out of range")
         searches = level_searches(levels) if searches is None else searches
         pad = win // 2 + 2
-        checks = [(pts, torch.float32, (N, 2)), (valid, torch.bool, (N,))]
+        if not 1 <= S <= 65535:
+            raise ValueError(f"lk_pyramid: {S} streams, 1 to 65535")
+        checks = [(pts, torch.float32, lead + (N, 2)), (valid, torch.bool, lead + (N,))]
         if g is not None:
-            checks.append((g, torch.float32, (N, 2)))
+            checks.append((g, torch.float32, lead + (N, 2)))
         if trace is not None:
-            checks.append((trace, torch.float32, (N, levels, 4)))
+            checks.append((trace, torch.float32, lead + (N, levels, 4)))
         capped = []
         for img0, img1, search in zip(pyr0, pyr1, searches, strict=True):
-            H, W = img0.shape
-            checks += [(img0, torch.float32, (H, W)), (img1, torch.float32, (H, W))]
+            H, W = img0.shape[-2:]
+            checks += [(img0, torch.float32, lead + (H, W)), (img1, torch.float32, lead + (H, W))]
             capped.append(lk_search_radius(win, H + 2 * pad, W + 2 * pad, search))
             if capped[-1] < 0 or min(H, W) + 2 * pad < win + 3:
                 raise ValueError(f"lk_pyramid: level {H}x{W} is smaller than the window")
         _check_tensors("lk_pyramid", dev, checks)
-        g_out = torch.empty((N, 2), dtype=torch.float32, device=dev)
-        ok = torch.empty((N,), dtype=torch.bool, device=dev)
-        vpa, ia = ctypes.c_void_p * levels, ctypes.c_int * levels
+        g_out = torch.empty(lead + (N, 2), dtype=torch.float32, device=dev)
+        ok = torch.empty(lead + (N,), dtype=torch.bool, device=dev)
+        vpa, ia, la = ctypes.c_void_p * levels, ctypes.c_int * levels, ctypes.c_longlong * levels
 
         def ptr(t):
             return None if t is None else t.data_ptr()
 
         fn = lib.lk_pyramid_floor_launch if floor else lib.lk_pyramid_launch
         err = fn(vpa(*[p.data_ptr() for p in pyr0]), vpa(*[p.data_ptr() for p in pyr1]),
-                 ia(*[p.shape[0] for p in pyr0]), ia(*[p.shape[1] for p in pyr0]),
-                 ia(*capped), levels, pts.data_ptr(), ptr(g), valid.data_ptr(), N, iters,
+                 la(*[p.shape[-2] * p.shape[-1] for p in pyr0]),
+                 ia(*[p.shape[-2] for p in pyr0]), ia(*[p.shape[-1] for p in pyr0]),
+                 ia(*capped), levels, S, pts.data_ptr(), ptr(g), valid.data_ptr(), N, iters,
                  eps, min_eig_thresh, g_out.data_ptr(), ok.data_ptr(), ptr(trace),
                  warps_per_block, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:

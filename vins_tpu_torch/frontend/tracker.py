@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .fused import make_front_state, make_front_step, unpack_front_blob
+from .fused import make_front_state, make_front_step, make_front_step_b, unpack_front_blob
 
 N_HYP = 64  # RANSAC hypotheses per published frame
 
@@ -63,9 +63,10 @@ class FeatureTracker:
         self.dtype = dtype
         self.device = torch.device(device)
         self.mask = None if mask is None else np.asarray(mask, bool)
-        self._step = make_front_step(
-            camera, max_cnt, min_dist, f_threshold, equalize, focal,
-            win=win, levels=levels, fov_mask=self.mask, dtype=dtype, device=self.device)
+        self._front_args = (camera, max_cnt, min_dist, f_threshold, equalize, focal)
+        self._front_kw = dict(win=win, levels=levels, fov_mask=self.mask, dtype=dtype,
+                              device=self.device)
+        self._step = make_front_step(*self._front_args, **self._front_kw)
         self._shape = image_shape  # lazily set from the first image
         self._state = None
         # RANSAC draws; seeded 42 as the reference's PRNGKey(42)
@@ -84,6 +85,15 @@ class FeatureTracker:
     def prev_img(self):
         return None if not self._has_prev else self._state.prev_img
 
+    def batched_step(self):
+        """This tracker's step for S lock-step streams at once
+        (`fused.make_front_step_b`, the multi-stream pipeline's)."""
+        return make_front_step_b(*self._front_args, **self._front_kw)
+
+    def draw(self) -> torch.Tensor:
+        """The next RANSAC draw [64, max_cnt] from this tracker's generator."""
+        return gumbel_draw((N_HYP, self.M), self._gen, self.device)
+
     def _dispatch(self, img, t: float, publish: bool, gumbel):
         if self._state is None:
             h, w = (tuple(img.shape) if self._shape is None else self._shape)
@@ -91,7 +101,7 @@ class FeatureTracker:
         dt = float(np.float32((t - self.prev_time) if self.prev_time is not None else 0.0))
         if publish and self._has_prev:
             if gumbel is None:
-                gumbel = gumbel_draw((N_HYP, self.M), self._gen, self.device)
+                gumbel = self.draw()
             else:
                 if not torch.is_tensor(gumbel):
                     gumbel = torch.from_numpy(np.array(gumbel, np.float32))
@@ -140,8 +150,12 @@ class FeatureTracker:
             blob, event = blob
             if event is not None:
                 event.synchronize()
-        un, vel, pts, pub_mask, valid, cnt, ids, n_new = unpack_front_blob(
-            blob.cpu().numpy(), self.M)
+        return self.adopt_host(blob.cpu().numpy())
+
+    def adopt_host(self, blob: np.ndarray) -> FrameFeatures:
+        """Unpack a fetched front blob into the host mirrors and the
+        estimator wire format."""
+        un, vel, pts, pub_mask, valid, cnt, ids, n_new = unpack_front_blob(blob, self.M)
         self.pts = np.asarray(pts, float)
         self.valid = valid
         self.track_cnt = cnt.astype(np.int64)

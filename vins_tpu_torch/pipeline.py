@@ -275,11 +275,12 @@ class Pipeline:
                 np.asarray(feats.uv)[:, 1] / self.cfg.image_height - 0.5)
         return 0.0
 
-    def _downstream(self, out: dict, t: float):
+    def _downstream(self, out: dict, t: float, rebase: bool = True):
         """Post-solve host work of one published frame: the fast-relocalization
-        feedback, the trajectories, the IMU-rate predictor rebase and the
-        keyframe hand-off.  Mutates `out` (sync mode adds the loop
-        diagnostics)."""
+        feedback, the trajectories, the IMU-rate predictor rebase (unless
+        `rebase` is False: `parallel.MultiPipeline` keeps the propagator's
+        clock at the last IMU sample) and the keyframe hand-off.  Mutates
+        `out` (sync mode adds the loop diagnostics)."""
         est = self.estimator
         pg = self.pose_graph
         if pg is not None:
@@ -289,7 +290,8 @@ class Pipeline:
         W = est.W
         p, q = est.p[W].copy(), est.q[W].copy()
         self.trajectory.append((t, p, q))
-        self.propagator.rebase(t, p, q, est.v[W], est.ba[W], est.bg[W])
+        if rebase:
+            self.propagator.rebase(t, p, q, est.v[W], est.ba[W], est.bg[W])
         if pg is None:
             return
         pc, qc = pg.correct_pose(p, q, self.sequence)

@@ -111,19 +111,20 @@ def track_quality(seq: Sequence, published: dict) -> dict:
 
 def make_pipeline(device="cuda", overlap: bool = False, cuda_graph: bool = True,
                   loop_closure: bool = True, pg_skip_first_cnt: int = 10,
-                  pg_async: bool = False, gumbel=None, **cfg_kw) -> Pipeline:
+                  pg_async: bool = False, gumbel=None, dtype=torch.float64,
+                  **cfg_kw) -> Pipeline:
     """The proxy's Pipeline (vins_tpu/sim/proxy.py:53-76): 752×480 EuRoC
     camera, 150 features, min_dist 30, publish at 10 Hz, 256 landmark slots,
     the forward extrinsic, the reference yaml's noise densities (acc_n 0.08,
-    gyr_n 0.004), 64-sample IMU intervals, float64 estimator; loop closure on
-    with the reference's MIN_LOOP_NUM 25 (keyframe.h:16) unless `cfg_kw`
-    says otherwise, the pose graph in line unless `pg_async`; serial unless
-    `overlap`.  `cfg_kw` sets any other `VinsConfig` field; `gumbel` goes to
-    the pose graph."""
+    gyr_n 0.004), 64-sample IMU intervals, a `dtype` estimator (float64 by
+    default); loop closure on with the reference's MIN_LOOP_NUM 25
+    (keyframe.h:16) unless `cfg_kw` says otherwise, the pose graph in line
+    unless `pg_async`; serial unless `overlap`.  `cfg_kw` sets any other `VinsConfig` field;
+    `gumbel` goes to the pose graph."""
     cfg = make_config(loop_closure=loop_closure, pg_skip_first_cnt=pg_skip_first_cnt,
                       pg_async=pg_async, **cfg_kw)
-    return Pipeline(cfg, euroc_camera(device=device), imu_buf_len=64, device=device,
-                    overlap=overlap, cuda_graph=cuda_graph, gumbel=gumbel)
+    return Pipeline(cfg, euroc_camera(device=device), imu_buf_len=64, dtype=dtype,
+                    device=device, overlap=overlap, cuda_graph=cuda_graph, gumbel=gumbel)
 
 
 def make_config(loop_closure: bool = True, pg_skip_first_cnt: int = 10,
