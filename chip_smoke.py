@@ -109,6 +109,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      loops and none false per stream, keyframes dropped, ms per tick.  9d
      the single-stream pipeline with a float32 estimator, graphed, on phase
      5's 10 s proxy: tests/test_proxy_f32.py's checks.
+  10. the landmark-sharded window solve (`parallel/sharded.py`) as
+     `run_sharded` rank processes, each held by the worker against the
+     one-rank solve on the same device: the sharded VIO step at 11 × 1024
+     and 11 × 256 with marg_old true and false, and the sharded BA at 11 ×
+     4096, float64 to tests/test_parallel.py's bounds.  10a one rank under
+     NCCL; 10b two (lm = 2) and four (seq = 2 × lm = 2) ranks sharing the
+     card under gloo, the four also in float32 (a distinct problem per
+     seq shard; finite, the state within 1e-4 of the one-rank float32
+     solve).  Replicated outputs bitwise equal across the ranks
+     that share them, 3 all-reduces per LM iteration of the window solve
+     and 2 of the BA; ms per sharded step and per BA iteration beside the
+     one-rank solve (ranks sharing one card: not a scaling result), and
+     one rank's step under the profiler.
 Then it prints a `kernels` JSON line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 
@@ -117,6 +130,7 @@ last `{"ok": true, "device": {...}}`.
     python3 chip_smoke.py --phases 7      # build, then only the loop back-end
     python3 chip_smoke.py --phases 8      # build, then only the looped pipeline and replay
     python3 chip_smoke.py --phases 9      # build, then only the multi-stream pipeline
+    python3 chip_smoke.py --phases 10     # build, then only the sharded solve
 """
 from __future__ import annotations
 
@@ -2438,17 +2452,70 @@ def phase_multistream(dev, inp5) -> tuple:
     return launches, dict(b=b, c=c, d=d)
 
 
+# ---- 10. the landmark-sharded window solve -------------------------------------------
+SHARDED_VIO_L, SHARDED_BA_L, SHARDED_FRAMES = (1024, 256), 4096, 11
+SHARDED_LIMIT_S = 300.0           # of each rank process
+SHARDED_RUNS = (                  # (tag, ranks, arguments of run_sharded)
+    ("10a", 1, ["--backend", "nccl", "--seq", "1", "--lm", "1"]),
+    ("10b lm=2", 2, ["--backend", "gloo", "--seq", "1", "--lm", "2"]),
+    ("10b seq=2 x lm=2", 4, ["--backend", "gloo", "--seq", "2", "--lm", "2",
+                             "--dtype", "float64,float32"]),
+)
+ALL_REDUCES_PER_LM_ITERATION = dict(vio=3, ba=2)  # cost; H/b; S_H/S_b (BA: cost; all four)
+
+
+def phase_sharded(device: str = "cuda") -> dict:
+    """Phase 10: `run_sharded` as rank processes on the card (10a one rank
+    under NCCL; 10b two and four ranks sharing the card under gloo, float64
+    and float32), each held by the worker against the one-rank solve on the
+    same device; here the records are checked and kept."""
+    from vins_tpu_torch.run_sharded import launch
+
+    t_phase = time.perf_counter()
+    out = {}
+    for tag, n, args in SHARDED_RUNS:
+        dtypes = args[args.index("--dtype") + 1].split(",") if "--dtype" in args else ["float64"]
+        t0 = time.perf_counter()
+        ranks = launch(n, ["--device", device, "--frames", str(SHARDED_FRAMES),
+                           "--landmarks", ",".join(map(str, SHARDED_VIO_L)),
+                           "--ba-landmarks", str(SHARDED_BA_L), *args], SHARDED_LIMIT_S)
+        for r, (rc, text) in enumerate(ranks):
+            check(rc == 0, f"phase {tag}: rank {r} exited {rc}:\n{text[-3000:]}")
+        lines = [ln for ln in ranks[0][1].splitlines() if ln.startswith("{")]
+        check(len(lines) == 1, f"phase {tag}: rank 0 printed {len(lines)} result lines")
+        rec = json.loads(lines[0])
+        vio = rec["vio"]
+        check(rec["ok"] and rec["world"] == n and rec["device"].startswith(device),
+              f"phase {tag}: {json.dumps(rec)[:3000]}")
+        check(len(vio) == 2 * len(SHARDED_VIO_L) * len(dtypes), f"phase {tag}: {len(vio)} VIO runs")
+        for v in vio:
+            check(v["within_bounds"] and v["replicas_bitwise_equal"],
+                  f"phase {tag}: VIO at {v['landmarks']} landmarks, marg_old {v['marg_old']}: "
+                  f"{json.dumps(v)[:2000]}")
+            check(v["all_reduces_per_lm_iteration"] == ALL_REDUCES_PER_LM_ITERATION["vio"],
+                  f"phase {tag}: {v['all_reduces_per_lm_iteration']} all-reduces per LM iteration")
+        check(rec["ba"]["within_bounds"] and rec["ba"]["replicas_bitwise_equal"]
+              and rec["ba"]["all_reduces_per_lm_iteration"] == ALL_REDUCES_PER_LM_ITERATION["ba"],
+              f"phase {tag}: BA {rec['ba']}")
+        rec["seconds"] = time.perf_counter() - t0
+        out[tag] = rec
+        log(f"phase {tag}: " + json.dumps(rec))
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s of phase time (ranks sharing one "
+        f"card: the times are not a scaling result)")
+    return out
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10",
                     help="phases after the build to run; any other set than the default "
                          "prints no result lines")
     phases = {int(x) for x in ap.parse_args().phases.split(",")}
-    full = phases == {2, 3, 4, 5, 6, 7, 8, 9}
+    full = phases == {2, 3, 4, 5, 6, 7, 8, 9, 10}
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2540,6 +2607,10 @@ def main() -> int:
         launches9, multistream = phase_multistream(dev, inp5 if 5 in phases else None)
         log("phase 9: " + json.dumps(multistream))
         log(f"phase 9: {time.perf_counter() - t9:.1f} s of phase time")
+
+    # ---- 10. the landmark-sharded window solve --------------------------------------
+    if 10 in phases:
+        phase_sharded()
     if not full:
         return 0
 

@@ -17,6 +17,8 @@ from .core import cameras
 from .frontend.fused import FrontState
 from .imu.preintegration import ImuNoise, Preintegration
 from .sim.render import Room
+from .sim.window import WindowProblem
+from .solver.ba import BAState
 from .solver.problem import FeatureObs, Prior, WindowState
 
 _CAMERAS = {cls.__name__: cls for cls in (
@@ -66,6 +68,18 @@ def prior(src, device="cuda") -> Prior:
 def preintegration(src, device="cuda") -> Preintegration:
     """A reference `Preintegration` (batched or not) → the port's."""
     return Preintegration(*[_tensor(getattr(src, f), device) for f in Preintegration._fields])
+
+
+def window_problem(src, device="cuda") -> WindowProblem:
+    """A reference `WindowProblem` (`vins_tpu/sim/window.py`) → the port's."""
+    return WindowProblem(state_true=window_state(src.state_true, device),
+                         obs=feature_obs(src.obs, device), pres=preintegration(src.pres, device),
+                         **{f: _tensor(getattr(src, f), device) for f in WindowProblem._fields[3:]})
+
+
+def ba_state(src, device="cuda") -> BAState:
+    """A reference `BAState` (`vins_tpu/solver/ba.py`) → the port's."""
+    return BAState(*[_tensor(getattr(src, f), device) for f in BAState._fields])
 
 
 def imu_noise(src) -> ImuNoise:

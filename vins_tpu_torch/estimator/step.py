@@ -29,7 +29,7 @@ import torch
 from ..core import lie
 from ..core.linalg import dlt_null_vector
 from ..imu.preintegration import ImuNoise, preintegrate
-from ..solver.gn import SolverOptions, _no_sharding, solve_window
+from ..solver.gn import SolverOptions, solve_window
 from ..solver.marginalize import marginalize_old, marginalize_second_new
 from ..solver.problem import FeatureObs, Layout, Prior, WindowState
 
@@ -109,15 +109,18 @@ def reanchor_yaw(state: WindowState, origin_p0, origin_q0):
 
 def make_vio_step(layout: Layout, noise: ImuNoise, opts: SolverOptions,
                   estimate_extrinsic: bool = False, estimate_td: bool = False,
-                  axis_name: str | None = None, with_relo: bool = False):
-    """Build the per-frame step for a fixed window layout.
+                  axis_name=None, with_relo: bool = False):
+    """Build the per-frame step for a fixed window layout.  With `axis_name`
+    (a `parallel/sharded.py` `Axis`) the landmark axis of `obs` and
+    `needs_tri` is this rank's block: the solve and the marginalization sum
+    over the axis, triangulation stays local, and the re-anchor, the failure
+    flags and `marginalize_second_new` are replicated.
 
     With `with_relo`, the step takes 5 extra trailing arguments (relo_p0
     [3], relo_q0 [4], relo_pt [L,2], relo_valid [L], relo_on []) and jointly
     optimizes the relo pose inside the window solve (estimator.cpp:769-801);
     `relo_on` gates the factors, so the same step serves frames without a
-    match.  `axis_name` (the landmark-sharded solve) is not ported."""
-    _no_sharding(axis_name)
+    match."""
 
     def vio_step(state: WindowState, imu_dt, imu_acc, imu_gyr, imu_mask, obs: FeatureObs,
                  needs_tri, prior: Prior, gravity, marg_old: bool, last_p,
@@ -133,7 +136,8 @@ def make_vio_step(layout: Layout, noise: ImuNoise, opts: SolverOptions,
 
         # 3. solve
         origin_p0, origin_q0 = state.p[0], state.q[0]
-        kw = dict(estimate_extrinsic=estimate_extrinsic, estimate_td=estimate_td)
+        kw = dict(estimate_extrinsic=estimate_extrinsic, estimate_td=estimate_td,
+                  axis_name=axis_name)
         if with_relo:
             solved, lam, info, relo_p, relo_q = solve_window(
                 state, obs2, pres, prior, gravity, layout, opts, relo=tuple(relo_args), **kw)
@@ -158,7 +162,8 @@ def make_vio_step(layout: Layout, noise: ImuNoise, opts: SolverOptions,
         # 6. marginalize for the slide (a bool tensor: both, one kept)
         def old():
             return marginalize_old(solved, obs2._replace(inv_depth=lam), pres, prior, gravity,
-                                   layout, focal=opts.focal, max_imu_dt=opts.max_imu_dt)
+                                   layout, focal=opts.focal, max_imu_dt=opts.max_imu_dt,
+                                   axis_name=axis_name)
 
         if torch.is_tensor(marg_old):
             prior_new = where_prior(marg_old, old(), marginalize_second_new(prior, layout))

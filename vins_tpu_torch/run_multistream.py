@@ -26,10 +26,10 @@ import numpy as np
 import torch
 
 from .parallel.multistream import MultiPipeline
-from .sim.proxy import (BA, BG, EUROC_H, EUROC_W, R_IC_FORWARD, TIC, ate_rmse_tum,
-                        euroc_camera, make_pipeline)
+from .sim.proxy import BA, BG, EUROC_H, EUROC_W, TIC, ate_rmse_tum, euroc_camera, make_pipeline
 from .sim.render import Room, RoomRenderer
 from .sim.synthetic import Trajectory
+from .sim.window import R_IC_FORWARD
 
 IMU_HZ = 200.0
 

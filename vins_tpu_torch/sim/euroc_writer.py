@@ -21,9 +21,10 @@ import numpy as np
 import torch
 
 from ..io.png import write_png_gray
-from .proxy import BA, BG, EUROC_H, EUROC_W, R_IC_FORWARD, TIC, euroc_camera
+from .proxy import BA, BG, EUROC_H, EUROC_W, TIC, euroc_camera
 from .render import Room, RoomRenderer
 from .synthetic import Trajectory
+from .window import R_IC_FORWARD
 
 
 def write_euroc_dataset(root: str, duration: float = 3.0, period: float = 16.0,

@@ -21,6 +21,7 @@ from ..core.cameras import PinholeCamera
 from ..pipeline import Pipeline
 from .render import Room, RoomRenderer
 from .synthetic import Trajectory
+from .window import R_IC_FORWARD
 
 EUROC_W, EUROC_H = 752, 480
 EUROC_INTRINSICS = dict(fx=461.6, fy=460.3, cx=363.0, cy=248.1,
@@ -28,7 +29,6 @@ EUROC_INTRINSICS = dict(fx=461.6, fy=460.3, cx=363.0, cy=248.1,
 TIC = (0.05, -0.02, 0.03)
 BA = (0.02, -0.01, 0.015)      # true accelerometer bias of the proxy IMU
 BG = (0.002, 0.003, -0.001)    # true gyroscope bias
-R_IC_FORWARD = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0), (0.0, -1.0, 0.0))
 FOCAL = 460.0
 # the proxy runs' scene (vins_tpu/sim/proxy.py): the circuit of radius 4 m
 # and period 16 s, pixel noise σ = 2, 96 texture components, seed 0, a

@@ -9,6 +9,12 @@ a Jacobi-preconditioned Cholesky solve of the reduced camera system, and an
 accept/reject by `torch.where`.  No step reads a value back to the host:
 the loop has a fixed length, Cholesky is `cholesky_ex` (a failed factor
 gives NaN) and the solves are triangular.
+
+`axis_name` is the landmark-sharded solve's axis (a `parallel/sharded.py`
+`Axis`, in place of JAX's mesh-axis name): the landmark axis of `obs` is
+this rank's block, and the projection terms of the cost, of H/b and of the
+Schur complement are summed over the axis by `axis_name.psum` (one fused
+all-reduce each, as JAX's psums); the IMU and prior terms are replicated.
 """
 from __future__ import annotations
 
@@ -24,12 +30,6 @@ from .factors import (densify_imu, densify_projection, densify_relo, imu_blocks,
                       relo_residuals)
 from .problem import (FeatureObs, Layout, Prior, WindowState, prior_residual, state_boxplus,
                       where_state)
-
-
-def _no_sharding(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "the landmark-sharded solve (axis_name) is not ported yet: ROADMAP Queue 1 item 11")
 
 
 class SolverOptions(NamedTuple):
@@ -56,35 +56,36 @@ def _cauchy_weights(r: torch.Tensor, valid: torch.Tensor):
 
 def compute_cost(state: WindowState, lam, obs: FeatureObs, pres: Preintegration,
                  prior: Prior, gravity, layout: Layout, opts: SolverOptions,
-                 axis_name: str | None = None, relo_eval=None) -> torch.Tensor:
+                 axis_name=None, relo_eval=None) -> torch.Tensor:
     """Total robustified cost at a state (for LM accept/reject).
     `relo_eval`: optional (relo_p, relo_q, relo_pt, relo_valid, relo_on)
     adding the relocalization projection factors (estimator.cpp:769-801)."""
-    _no_sharding(axis_name)
     obs = obs._replace(inv_depth=lam)
     r, valid = projection_residuals(state, obs, opts.focal)
     s = torch.sum(r * r, dim=-1)
-    cost_p = torch.sum(torch.where(valid, torch.log1p(s), 0.0))
-    r_i = imu_residuals(state, pres, gravity, opts.max_imu_dt)
-    r_pr = prior_residual(prior, state, layout)
-    cost = 0.5 * (cost_p + torch.sum(r_i * r_i) + torch.sum(r_pr * r_pr))
+    sharded = [torch.sum(torch.where(valid, torch.log1p(s), 0.0))]
     if relo_eval is not None:
         relo_p, relo_q, relo_pt, relo_valid, relo_on = relo_eval
         rr, rv = relo_residuals(state, obs, relo_p, relo_q, relo_pt, relo_valid, opts.focal)
         sr = torch.sum(rr * rr, dim=-1)
-        cost = cost + 0.5 * relo_on * torch.sum(torch.where(rv, torch.log1p(sr), 0.0))
+        sharded.append(torch.sum(torch.where(rv, torch.log1p(sr), 0.0)))
+    if axis_name is not None:
+        sharded = axis_name.psum(*sharded)
+    r_i = imu_residuals(state, pres, gravity, opts.max_imu_dt)
+    r_pr = prior_residual(prior, state, layout)
+    cost = 0.5 * (sharded[0] + torch.sum(r_i * r_i) + torch.sum(r_pr * r_pr))
+    if relo_eval is not None:
+        cost = cost + 0.5 * relo_on * sharded[1]
     return cost
 
 
 def build_normal_equations(state: WindowState, lam, obs: FeatureObs, pres: Preintegration,
                            prior: Prior, gravity, layout: Layout, opts: SolverOptions,
-                           col_mask: torch.Tensor, axis_name: str | None = None,
-                           relo_eval=None):
+                           col_mask: torch.Tensor, axis_name=None, relo_eval=None):
     """Assemble H, b and the landmark blocks (H_xl, H_ll, b_l).  With
     `relo_eval` the system has 6 extra columns (the relo pose block) and the
     relo projection factors contribute (estimator.cpp:769-801).  `col_mask`
     [dim_ext]: 1 = free, 0 = held fixed."""
-    _no_sharding(axis_name)
     obs = obs._replace(inv_depth=lam)
     n_ext = 6 if relo_eval is not None else 0
 
@@ -129,6 +130,8 @@ def build_normal_equations(state: WindowState, lam, obs: FeatureObs, pres: Prein
         H_ll = H_ll + torch.einsum("lr,lr->l", J_r_lam, J_r_lam)
         b_l = b_l - torch.einsum("lr,lr->l", J_r_lam, r_r)
 
+    if axis_name is not None:  # one fused all-reduce of the per-shard terms
+        H, b_p = axis_name.psum(H, b_p)
     Ji = J_imu.flatten(0, 1)
     H = H + Ji.T @ Ji + J_prior.T @ J_prior
     b = -(b_p + Ji.T @ imu.r.reshape(-1) + J_prior.T @ r_prior)
@@ -139,7 +142,6 @@ def build_normal_equations(state: WindowState, lam, obs: FeatureObs, pres: Prein
 
 def _damped_solve(H, b, H_xl, H_ll, b_l, mu, dtype, axis_name=None):
     """Schur-reduced, Marquardt-damped, Jacobi-preconditioned solve."""
-    _no_sharding(axis_name)
     dim_x = H.shape[0]
     eye = torch.eye(dim_x, dtype=dtype, device=H.device)
     H_d = H + mu * torch.diag(torch.diagonal(H)) + 1e-10 * eye
@@ -148,6 +150,8 @@ def _damped_solve(H, b, H_xl, H_ll, b_l, mu, dtype, axis_name=None):
 
     S_H = (H_xl * inv_ll[None, :]) @ H_xl.T
     S_b = H_xl @ (inv_ll * b_l)
+    if axis_name is not None:
+        S_H, S_b = axis_name.psum(S_H, S_b)
     H_red = H_d - S_H
     b_red = b - S_b
 
@@ -167,8 +171,7 @@ def _damped_solve(H, b, H_xl, H_ll, b_l, mu, dtype, axis_name=None):
 def solve_window(state: WindowState, obs: FeatureObs, pres: Preintegration, prior: Prior,
                  gravity, layout: Layout, opts: SolverOptions = SolverOptions(),
                  estimate_extrinsic: bool = False, estimate_td: bool = False,
-                 extra_diag: torch.Tensor | None = None, axis_name: str | None = None,
-                 relo=None):
+                 extra_diag: torch.Tensor | None = None, axis_name=None, relo=None):
     """Run the fixed-iteration LM loop; returns (state, inv_depth, info) —
     or (state, inv_depth, info, relo_p, relo_q) when `relo` is given.
 
@@ -176,8 +179,9 @@ def solve_window(state: WindowState, obs: FeatureObs, pres: Preintegration, prio
     soft-fixing states).  `relo` = (relo_p0, relo_q0, relo_pt [L,2],
     relo_valid [L], relo_on): adds the relocalization pose as a free 6-dim
     block (estimator.cpp:769-801); `relo_on` is a 0/1 gate so one step
-    serves frames with and without a relo match."""
-    _no_sharding(axis_name)
+    serves frames with and without a relo match.  With `axis_name` the
+    landmark axis of `obs` (and of `relo`) is this rank's block of a
+    landmark-sharded window."""
     dt = state.p.dtype
     dev = state.p.device
     dim_x = layout.dim_x
@@ -204,7 +208,7 @@ def solve_window(state: WindowState, obs: FeatureObs, pres: Preintegration, prio
 
     def cost_fn(state, lam, rp, rq):
         re = (rp, rq, relo_pt, relo_valid, relo_on) if with_relo else None
-        return compute_cost(state, lam, obs, pres, prior, gravity, layout, opts,
+        return compute_cost(state, lam, obs, pres, prior, gravity, layout, opts, axis_name,
                             relo_eval=re)
 
     lam, rp, rq = obs.inv_depth, relo_p0, relo_q0
@@ -214,9 +218,10 @@ def solve_window(state: WindowState, obs: FeatureObs, pres: Preintegration, prio
     for _ in range(opts.iters):
         re = (rp, rq, relo_pt, relo_valid, relo_on) if with_relo else None
         H, b, H_xl, H_ll, b_l = build_normal_equations(
-            state, lam, obs, pres, prior, gravity, layout, opts, col_mask, relo_eval=re)
+            state, lam, obs, pres, prior, gravity, layout, opts, col_mask, axis_name,
+            relo_eval=re)
         H = H + torch.diag(extra)
-        dx, d_lam = _damped_solve(H, b, H_xl, H_ll, b_l, mu, dt)
+        dx, d_lam = _damped_solve(H, b, H_xl, H_ll, b_l, mu, dt, axis_name)
         cand_state = state_boxplus(state, dx[:dim_x], layout)
         if with_relo:
             cand_rp, cand_rq = lie.pose_boxplus(rp, rq, dx[dim_x:dim_x + 3],

@@ -16,7 +16,10 @@ projection, and QR-eliminate the dropped columns; the trailing triangle of R
 is the new prior's (J, r0).  A QR may flip the sign of any row of R against
 another implementation's: the prior's JᵀJ and Jᵀr0, and so its cost, do not
 change.  Column permutations are concatenations of static slices, so no
-index tensor is built on the host.
+index tensor is built on the host.  Over a landmark-sharded window the
+elimination is a TSQR: each rank QR-compresses its own projection rows, the
+ranks gather the triangles, and every rank takes the final QR of them with
+the replicated prior and IMU rows.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 
 from ..imu.preintegration import Preintegration
 from .factors import densify_imu, densify_projection, imu_blocks, projection_blocks
-from .gn import _cauchy_weights, _no_sharding
+from .gn import _cauchy_weights
 from .problem import FeatureObs, Layout, Prior, WindowState, prior_residual
 
 
@@ -66,12 +69,13 @@ def _cols(A, spans):
 
 def marginalize_old(state: WindowState, obs: FeatureObs, pres: Preintegration, prior: Prior,
                     gravity, layout: Layout, focal: float = 460.0, max_imu_dt: float = 10.0,
-                    axis_name: str | None = None) -> Prior:
+                    axis_name=None) -> Prior:
     """Marginalize frame 0 (and its anchored landmarks) into a new prior in
     the slid window layout.  Only factors touching dropped variables
     contribute (marginalization_factor.cpp drop_set): the previous prior,
-    IMU factor 0→1, and projection factors anchored at frame 0."""
-    _no_sharding(axis_name)
+    IMU factor 0→1, and projection factors anchored at frame 0.  With
+    `axis_name` (a `parallel/sharded.py` `Axis`) `obs` is this rank's
+    landmark block and the projection rows are reduced by a TSQR."""
     F = layout.F
     dt = state.p.dtype
     dim_x = layout.dim_x
@@ -98,10 +102,19 @@ def marginalize_old(state: WindowState, obs: FeatureObs, pres: Preintegration, p
 
     # step 2: QR-eliminate pose0 (cols 0:6) + sb0 (cols 6F:6F+9), the kept
     # columns after them in their own order
-    rows = torch.cat([proj_rows, prior_rows, imu_rows], dim=0)
-    rhs = torch.cat([proj_rhs, prior_rhs, imu_rhs])
     perm = [(0, 6), (6 * F, 6 * F + 9), (6, 6 * F), (6 * F + 9, dim_x)]
-    J_k, r0_k = _marginal_qr(_cols(rows, perm), rhs, 15)
+    if axis_name is not None:
+        # TSQR: this rank's projection rows compressed to one [D+1, D+1]
+        # triangle (rhs last), the gathered triangles stand in for them
+        R_loc = torch.linalg.qr(torch.cat([_cols(proj_rows, perm), proj_rhs[:, None]], dim=1),
+                                mode="r")[1]
+        R_all = axis_name.all_gather(R_loc).flatten(0, 1)
+        proj_rows, proj_rhs = R_all[:, :-1], R_all[:, -1]
+    else:
+        proj_rows = _cols(proj_rows, perm)
+    rows = torch.cat([proj_rows, _cols(prior_rows, perm), _cols(imu_rows, perm)], dim=0)
+    rhs = torch.cat([proj_rhs, prior_rhs, imu_rhs])
+    J_k, r0_k = _marginal_qr(rows, rhs, 15)
 
     # step 3: the kept vector (poses 1..F-1, sbs 1..F-1, ext, td) maps to the
     # slid layout's [0:6(F-1)] ⊕ [6F:6F+9(F-1)] ⊕ tail
