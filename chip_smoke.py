@@ -122,6 +122,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and 2 of the BA; ms per sharded step and per BA iteration beside the
      one-rank solve (ranks sharing one card: not a scaling result), and
      one rank's step under the profiler.
+  11. the synthetic estimator (`sim/driver.py`: exact IMU and features on
+     the closed-form figure-8, no front-end), float64 on the card, graphed:
+     11a tests/test_estimator_e2e.py's 40-frame run and its bounds (no reboot
+     after init, ATE < 0.05 m, the biases, the speed) with every VIO step
+     under sync-debug mode "error", timed per frame; 11b failure recovery;
+     11c the hover run (no IMU overflow in a 32-sample buffer); 11d
+     ESTIMATE_EXTRINSIC = 2 on a figure-8 of period 5 s: calibrated, the
+     rotation within a limit from the JAX run on the same scene
+     (`tools/port_synthetic_reference.py`), initialized, NON_LINEAR at the
+     end; 11e tests/test_init_health.py's corrupted-init 6 s proxy through
+     the port's `run_proxy` (absorbed, or a reboot and a new
+     initialization); 11f `python -m vins_tpu_torch.run_synthetic` as a
+     subprocess, exit 0.  No hand kernel runs in 11a-11d.
 Then it prints a `kernels` JSON line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 
@@ -131,6 +144,7 @@ last `{"ok": true, "device": {...}}`.
     python3 chip_smoke.py --phases 8      # build, then only the looped pipeline and replay
     python3 chip_smoke.py --phases 9      # build, then only the multi-stream pipeline
     python3 chip_smoke.py --phases 10     # build, then only the sharded solve
+    python3 chip_smoke.py --phases 11     # build, then only the synthetic estimator
 """
 from __future__ import annotations
 
@@ -2505,17 +2519,313 @@ def phase_sharded(device: str = "cuda") -> dict:
     return out
 
 
+# ---- 11. the synthetic estimator --------------------------------------------------
+# The estimator alone on the closed-form figure-8 of `sim/driver.py` (600
+# landmarks, 200 Hz IMU, 10 Hz frames, exact features: no front-end, so no
+# hand kernel runs), float64 on the card, each VIO step one graph replay.
+# 11a-11c hold tests/test_estimator_e2e.py's bounds (:35-70, :72-88,
+# :118-130), 11e tests/test_init_health.py:45-72 through the port's proxy.
+# 11d calibrates the extrinsic rotation from scratch (ESTIMATE_EXTRINSIC =
+# 2) on a figure-8 of period 5 s: on the default one (20 s) the reference
+# never accepts (ROADMAP Queue 3).  It runs on the JAX driver's own
+# landmarks (`sim/driver.jax_driver_points`).  Limits, from the JAX
+# estimator on the same scene (CPU, float64, 60 frames;
+# tools/port_synthetic_reference.py): it accepted at frame 35 with a
+# calibrated rotation 0.00223449 rad from R_IC_FORWARD, initialized in the
+# same frame by the window path with a scale of 3.64975, and ended in
+# NON_LINEAR with ATE 0.0151316 m.  Margins: the rotation and the ATE may be
+# twice the reference's; the scale within 1 % of it.
+SYN = dict(e2e_frames=40, recovery_frames=20, hover_frames=36, ex_frames=60, ex_period=5.0,
+           corrupted_seconds=6.0)
+SYN_BA, SYN_BG = (0.02, -0.01, 0.015), (0.002, 0.003, -0.001)
+JAX_EX = dict(accepted_frame=35, ric_err_rad=0.00223449, init_frame=35, init_reason="ok",
+              init_scale=3.64975, ate_m=0.0151316)
+LIMITS.update(ex_ric_err_max_rad=2.0 * JAX_EX["ric_err_rad"], ex_ate_max_m=2.0 * JAX_EX["ate_m"],
+              ex_scale_rel=0.01)
+
+
+def timed_calls(obj, attr: str) -> list:
+    """Time every call of `obj.attr` (host clock, the card synchronized
+    before and after): [(result, ms)]."""
+    import torch
+
+    calls, fn = [], getattr(obj, attr)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a, **k)
+        torch.cuda.synchronize()
+        calls.append((r, (time.perf_counter() - t0) * 1e3))
+        return r
+
+    setattr(obj, attr, timed)
+    return calls
+
+
+def rot_angle(q1, q2) -> float:
+    """Angle between two unit quaternions (wxyz), rad."""
+    from vins_tpu_torch.core import nplie
+
+    d = nplie.qmul(nplie.qconj(np.asarray(q1)), np.asarray(q2))
+    return float(2.0 * np.arctan2(np.linalg.norm(d[1:]), abs(d[0])))
+
+
+def calibrated_run(est, driver, frames: int) -> dict:
+    """Drive an ESTIMATE_EXTRINSIC = 2 estimator through a synthetic driver
+    (either package's: only their common methods are called), recording the
+    calibration as accepted, before the same frame's initialization and
+    VIO step (which optimizes it) run."""
+    from vins_tpu_torch.core import nplie
+    from vins_tpu_torch.sim.driver import ate_rmse
+    from vins_tpu_torch.sim.window import R_IC_FORWARD
+
+    calib, calibrate, n = {}, est._calibrate_extrinsic, [0]
+    process = est.process_image
+
+    def count(*a, **k):
+        n[0] += 1
+        return process(*a, **k)
+
+    def watch(col):
+        calibrate(col)
+        if est.estimate_extrinsic == 1 and not calib:
+            calib.update(frame=n[0], qic=np.array(est.qic))
+
+    est.process_image, est._calibrate_extrinsic = count, watch
+    t0 = time.perf_counter()
+    run = driver.run(est, n_frames=frames)
+    kinds = [e["kind"] for e in run.events]
+    q_fwd = nplie.R2q(np.asarray(R_IC_FORWARD, float))
+    init = getattr(est, "last_init", None)
+    return dict(
+        accepted_frame=calib.get("frame"),
+        ric_err_rad=rot_angle(calib["qic"], q_fwd) if calib else None,
+        init_frame=kinds.index("initialized") + 1 if "initialized" in kinds else None,
+        init_reason=None if init is None else init.reason,
+        init_scale=None if init is None else float(init.scale),
+        solver_flag=int(est.solver_flag), failures=int(est.failures), kinds=kinds,
+        ate_m=ate_rmse(run), final_qic_err_rad=rot_angle(est.qic, q_fwd),
+        seconds=time.perf_counter() - t0)
+
+
+def corrupted_init_run(dev) -> dict:
+    """tests/test_init_health.py:45-72 through the port: `run_proxy` over the
+    6 s proxy in its own room, the first accepted initialization given 3×
+    its positions, velocities and scale."""
+    from vins_tpu_torch.sim import proxy
+
+    pipe = proxy.make_pipeline(device=dev, loop_closure=False)
+    est = pipe.estimator
+    orig = est.initializer.try_initialize
+    n = [0]
+
+    def corrupting(*a, **k):
+        res = orig(*a, **k)
+        if res.ok and n[0] == 0:
+            n[0] += 1
+            return res._replace(p=res.p * 3.0, v=res.v * 3.0, scale=res.scale * 3.0)
+        return res
+
+    est.initializer.try_initialize = corrupting
+    t0 = time.perf_counter()
+    r = proxy.run_proxy(pipe=pipe, inputs=proxy.proxy_inputs(duration=SYN["corrupted_seconds"],
+                                                             device=dev), device=dev)
+    kinds = [e.get("kind") for e in r.events]
+    return dict(corrupted_inits=n[0], failures=est.failures,
+                health_reboots=est.init_rejected_by_health, kinds=kinds,
+                ate_m=proxy.ate_rmse_tum(pipe.trajectory, r.t, r.p_gt),
+                seconds=time.perf_counter() - t0)
+
+
+def phase_synthetic(dev, card: str) -> dict:
+    """Phase 11: the synthetic estimator on the card (11a-11f)."""
+    import torch
+
+    from vins_tpu_torch.estimator.estimator import NON_LINEAR
+    from vins_tpu_torch.frontend.klt_cuda import lk_level, lk_pyramid
+    from vins_tpu_torch.run_synthetic import make_estimator
+    from vins_tpu_torch.sim.driver import SyntheticDriver, ate_rmse, jax_driver_points
+    from vins_tpu_torch.sim.synthetic import Trajectory
+
+    t_phase = time.perf_counter()
+    out = {}
+    lk_pyramid.launches = lk_level.launches = 0
+
+    # 11a: the 40-frame run of tests/test_estimator_e2e.py:25-70
+    t0 = time.perf_counter()
+    est = make_estimator(dev)
+    est.sync_check = True
+    driver = SyntheticDriver(imu_hz=200.0, frame_hz=10.0, g_norm=9.81)
+    # where a run's host time goes: the estimator's two calls, the driver's
+    # IMU evaluation and its projection, the rest of the driver's loop
+    images, imus = timed_calls(est, "process_image"), timed_calls(est, "process_imu")
+    imu_evals, projections = timed_calls(driver, "_imu_at"), timed_calls(driver, "_frame_fn")
+    t_run = time.perf_counter()
+    run = driver.run(est, n_frames=SYN["e2e_frames"])
+    run_ms = (time.perf_counter() - t_run) * 1e3
+    frames = [(ev["kind"], ms) for ev, ms in images]
+    kinds = [e["kind"] for e in run.events]
+    check("initialized" in kinds and est.solver_flag == NON_LINEAR,
+          f"phase 11a: not initialized or not NON_LINEAR: {kinds}")
+    i0 = kinds.index("initialized")
+    check(all(k == "vio" for k in kinds[i0 + 1:]), f"phase 11a: a reboot after init: {kinds[i0:]}")
+    ate = ate_rmse(run)
+    check(ate < 0.05, f"phase 11a: ATE {ate} m ≥ 0.05 m")
+    check(np.allclose(est.bg[est.W], SYN_BG, atol=5e-4), f"phase 11a: bg {est.bg[est.W]}")
+    check(np.allclose(est.ba[est.W], SYN_BA, atol=5e-2), f"phase 11a: ba {est.ba[est.W]}")
+    v_gt = driver.traj.vel(run.t[-1]).numpy()
+    dv = abs(np.linalg.norm(est.v[est.W]) - np.linalg.norm(v_gt))
+    check(dv < 0.05, f"phase 11a: | |v| - |v_gt| | = {dv} m/s")
+    steps = len(kinds) - i0
+    check(est._graph is not None and est._graph.replays == steps and est._graph.captures == 1,
+          f"phase 11a: {est._graph and est._graph.replays} graph replays for {steps} window solves")
+    check(est.prior.J.dtype == torch.float64 and est.prior.J.device.type == "cuda",
+          f"phase 11a: estimator prior {est.prior.J.dtype} on {est.prior.J.device}")
+    vio = [ms for k, ms in frames if k == "vio"]
+    split = {"run": run_ms, "before_init": sum(ms for _, ms in frames[:i0]),
+             "init_frame": frames[i0][1], "vio_frames": sum(vio),
+             "process_imu": sum(ms for _, ms in imus),
+             "driver_imu_eval": sum(ms for _, ms in imu_evals),
+             "driver_projection": sum(ms for _, ms in projections)}
+    split["driver_rest"] = run_ms - sum(v for k, v in split.items() if k != "run")
+    out["a"] = dict(frames=len(kinds), init_frame=i0 + 1, vio_frames=len(vio), ate_m=ate,
+                    bg=est.bg[est.W].tolist(), ba=est.ba[est.W].tolist(), speed_err_mps=dv,
+                    graph_replays=getattr(est._graph, "replays", None),
+                    ms_per_vio_frame_median=float(np.median(vio)),
+                    ms_per_vio_frame_p90=float(np.percentile(vio, 90)),
+                    init_frame_ms=frames[i0][1], run_split_ms=split,
+                    seconds=time.perf_counter() - t0)
+    log(f"phase 11a: initialized at frame {i0 + 1}, then {len(vio)} vio, ATE {ate:.5f} m "
+        f"(< 0.05), bg {np.round(est.bg[est.W], 6).tolist()}, ba "
+        f"{np.round(est.ba[est.W], 4).tolist()}, ||v| - |v_gt|| {dv:.5f} m/s; "
+        f"{out['a']['graph_replays']} graph replays, every VIO step under sync-debug "
+        f"\"error\"; per VIO frame {out['a']['ms_per_vio_frame_median']:.2f} ms median, "
+        f"{out['a']['ms_per_vio_frame_p90']:.2f} ms p90; initialization frame "
+        f"{out['a']['init_frame_ms']:.1f} ms; {out['a']['seconds']:.1f} s")
+    log("phase 11a: the run's host ms (each call synchronized): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+
+    # 11b: failure recovery (tests/test_estimator_e2e.py:72-88)
+    t0 = time.perf_counter()
+    est = make_estimator(dev)
+    driver.run(est, n_frames=SYN["recovery_frames"])
+    check(est.solver_flag == NON_LINEAR, "phase 11b: not NON_LINEAR after 20 frames")
+    t = 1.0 + SYN["recovery_frames"] / driver.frame_hz
+    for k in range(3):
+        for _ in range(20):
+            est.process_imu(1.0 / 200.0, np.array([0, 0, 9.81]), np.zeros(3))
+        est.process_image(np.array([], np.int64), np.zeros((0, 2)), np.zeros((0, 2)),
+                          np.zeros((0, 2)), t + 0.1 * k)
+    check(est.solver_flag == 0 and est.failures >= 1,
+          f"phase 11b: flag {est.solver_flag}, failures {est.failures} after the dropout")
+    out["b"] = dict(solver_flag=est.solver_flag, failures=est.failures,
+                    seconds=time.perf_counter() - t0)
+    log(f"phase 11b: feature dropout → failure detection → INITIAL ({est.failures} failure); "
+        f"{out['b']['seconds']:.1f} s")
+
+    # 11c: the hover run (tests/test_estimator_e2e.py:118-130)
+    t0 = time.perf_counter()
+    est = make_estimator(dev, imu_buf_len=32)
+    hover = SyntheticDriver(imu_hz=200.0, frame_hz=10.0, g_norm=9.81,
+                            traj=Trajectory.figure8(scale=0.02, period=40.0))
+    run = hover.run(est, n_frames=SYN["hover_frames"])
+    check(est.imu_overflow == 0 and int(est.imu_n.max()) <= 32,
+          f"phase 11c: imu_overflow {est.imu_overflow}, imu_n max {est.imu_n.max()}")
+    out["c"] = dict(imu_overflow=est.imu_overflow, imu_n_max=int(est.imu_n.max()),
+                    kinds=sorted(set(e["kind"] for e in run.events)),
+                    seconds=time.perf_counter() - t0)
+    log(f"phase 11c: hover, 32-sample buffer: 0 overflows, imu_n max {out['c']['imu_n_max']}; "
+        f"events {out['c']['kinds']}; {out['c']['seconds']:.1f} s")
+
+    # 11d: ESTIMATE_EXTRINSIC = 2 on the excited figure-8, the JAX driver's landmarks
+    ex_driver = SyntheticDriver(imu_hz=200.0, frame_hz=10.0, g_norm=9.81,
+                                traj=Trajectory.figure8(period=SYN["ex_period"]))
+    ex_driver.points = jax_driver_points()
+    d = calibrated_run(make_estimator(dev, estimate_extrinsic=2), ex_driver, SYN["ex_frames"])
+    kinds = d.pop("kinds")
+    check(d["accepted_frame"] is not None, f"phase 11d: never calibrated: {kinds}")
+    check(d["ric_err_rad"] <= LIMITS["ex_ric_err_max_rad"],
+          f"phase 11d: calibrated rotation {d['ric_err_rad']} rad from R_IC_FORWARD > "
+          f"{LIMITS['ex_ric_err_max_rad']}")
+    check(d["init_frame"] is not None and d["solver_flag"] == NON_LINEAR
+          and all(k == "vio" for k in kinds[d["init_frame"]:]),
+          f"phase 11d: not initialized, a reboot after init or not NON_LINEAR: {kinds}")
+    check(abs(d["init_scale"] / JAX_EX["init_scale"] - 1.0) < LIMITS["ex_scale_rel"],
+          f"phase 11d: initialized ({d['init_reason']}) with scale {d['init_scale']}, the "
+          f"reference {JAX_EX['init_scale']} ({JAX_EX['init_reason']})")
+    check(d["ate_m"] < LIMITS["ex_ate_max_m"],
+          f"phase 11d: ATE {d['ate_m']} m ≥ {LIMITS['ex_ate_max_m']}")
+    out["d"] = dict(d, limits={k: LIMITS[k] for k in ("ex_ric_err_max_rad", "ex_ate_max_m",
+                                                      "ex_scale_rel")}, jax=JAX_EX)
+    log(f"phase 11d: ESTIMATE_EXTRINSIC = 2, figure-8 of period {SYN['ex_period']} s, the JAX "
+        f"driver's landmarks: calibrated at frame {d['accepted_frame']} (JAX "
+        f"{JAX_EX['accepted_frame']}), {d['ric_err_rad']:.8f} rad from R_IC_FORWARD (JAX "
+        f"{JAX_EX['ric_err_rad']}; limit {LIMITS['ex_ric_err_max_rad']:.8f}); initialized at "
+        f"frame {d['init_frame']} ({d['init_reason']}, scale {d['init_scale']:.6f}; JAX "
+        f"{JAX_EX['init_scale']}), NON_LINEAR at the end, ATE {d['ate_m']:.6f} m (JAX "
+        f"{JAX_EX['ate_m']}; limit {LIMITS['ex_ate_max_m']:.6f}); {d['seconds']:.1f} s")
+
+    # exact features: 11a-11d run no front-end and so no hand kernel
+    check(lk_pyramid.launches == 0 and lk_level.launches == 0,
+          f"phase 11a-d: {lk_pyramid.launches} lk_pyramid, {lk_level.launches} lk_level launches")
+
+    # 11e: the corrupted-init 6 s proxy run (tests/test_init_health.py:45-72), in
+    # run_proxy's own room, whose 10 s phase 5 holds to the same 0.35 m; on
+    # the JAX proxy's room as the card renders it, the corrupted run misses
+    # 0.35 m in the port on the card and in JAX on the CPU alike (ROADMAP
+    # Queue 3, tools/port_init_health_diagnose.py)
+    e = corrupted_init_run(dev)
+    pkinds = e.pop("kinds")
+    check(e["corrupted_inits"] == 1, "phase 11e: the corrupted initialization was not accepted")
+    if e["failures"] == 0:
+        check(np.isfinite(e["ate_m"]) and e["ate_m"] < 0.35,
+              f"phase 11e: absorbed, but ATE {e['ate_m']} m")
+        outcome = f"absorbed, SE(3) ATE {e['ate_m']:.4f} m (< 0.35)"
+    else:
+        check("reboot" in pkinds and "initialized" in pkinds[pkinds.index("reboot"):],
+              f"phase 11e: rebooted without re-initializing: {pkinds}")
+        outcome = (f"rebooted ({e['failures']} failure(s), {e['health_reboots']} by the "
+                   f"health monitor) and initialized again")
+    out["e"] = e
+    log(f"phase 11e: corrupted init (3× p, v, scale) on the 6 s proxy: {outcome}; "
+        f"{e['seconds']:.1f} s")
+    launches = {"lk_pyramid": lk_pyramid.launches, "lk_level": lk_level.launches}
+    n_tracked = int(round(SYN["corrupted_seconds"] * 10.0)) - 1
+    check(launches == {"lk_pyramid": n_tracked, "lk_level": 0},
+          f"phase 11e: launches {launches}, expected lk_pyramid once per tracked frame "
+          f"({n_tracked})")
+
+    # 11f: the entry point, as a user runs it
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "vins_tpu_torch.run_synthetic"], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"phase 11f: run_synthetic exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    out["f"] = dict(json.loads(proc.stdout.strip().splitlines()[-1]),
+                    seconds=time.perf_counter() - t0)
+    log(f"phase 11f: python -m vins_tpu_torch.run_synthetic: exit 0, {json.dumps(out['f'])}")
+
+    out["launches_11e"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 11: {card}; per synthetic VIO frame {out['a']['ms_per_vio_frame_median']:.2f} "
+        f"ms median, {out['a']['ms_per_vio_frame_p90']:.2f} ms p90; initialization frame "
+        f"{out['a']['init_frame_ms']:.1f} ms; {out['seconds']:.1f} s of phase time")
+    return out
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11",
                     help="phases after the build to run; any other set than the default "
                          "prints no result lines")
     phases = {int(x) for x in ap.parse_args().phases.split(",")}
-    full = phases == {2, 3, 4, 5, 6, 7, 8, 9, 10}
+    full = phases == {2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2611,6 +2921,11 @@ def main() -> int:
     # ---- 10. the landmark-sharded window solve --------------------------------------
     if 10 in phases:
         phase_sharded()
+
+    # ---- 11. the synthetic estimator --------------------------------------------------
+    if 11 in phases:
+        synthetic = phase_synthetic(dev, card)
+        log("phase 11: " + json.dumps(synthetic))
     if not full:
         return 0
 
@@ -2623,6 +2938,7 @@ def main() -> int:
              launches_front_end=launches["lk_pyramid"], launches_replay=launches6["lk_pyramid"],
              launches_loop_serial=launches8["serial"], launches_loop_overlap=launches8["overlap"],
              launches_loop_replay=launches8c["loop"], launches_multistream=launches9,
+             launches_corrupted_init_proxy=synthetic["launches_11e"]["lk_pyramid"],
              ms=t["lk_pyramid"], **common, launch_floor_ms=t["launch_floor"],
              warps_per_block=WARPS_PER_BLOCK,
              ms_by_warps_per_block={w: t[f"lk_pyramid_w{w}"] for w in WARPS},

@@ -16,6 +16,7 @@ from .config import VinsConfig
 from .core import cameras
 from .frontend.fused import FrontState
 from .imu.preintegration import ImuNoise, Preintegration
+from .sim.driver import SyntheticDriver
 from .sim.render import Room
 from .sim.window import WindowProblem
 from .solver.ba import BAState
@@ -75,6 +76,21 @@ def window_problem(src, device="cuda") -> WindowProblem:
     return WindowProblem(state_true=window_state(src.state_true, device),
                          obs=feature_obs(src.obs, device), pres=preintegration(src.pres, device),
                          **{f: _tensor(getattr(src, f), device) for f in WindowProblem._fields[3:]})
+
+
+def synthetic_driver(src) -> SyntheticDriver:
+    """A reference `SyntheticDriver` (`vins_tpu/sim/driver.py`) → the port's
+    with its landmarks, rates, biases, gravity and `tic`/`qic`, so both
+    packages project the same points.  The trajectory is the port's
+    figure-8, the reference driver's default (its closures do not carry
+    over)."""
+    dst = SyntheticDriver(n_points=0, imu_hz=src.imu_hz, frame_hz=src.frame_hz,
+                          g_norm=float(np.asarray(src.gravity)[2]), ba=np.array(src.ba),
+                          bg=np.array(src.bg), tic=np.asarray(src.tic))
+    dst.points = _tensor(src.points, "cpu")
+    dst.qic = _tensor(src.qic, "cpu")
+    dst.max_cnt = src.max_cnt
+    return dst
 
 
 def ba_state(src, device="cuda") -> BAState:

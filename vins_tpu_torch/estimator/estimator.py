@@ -109,6 +109,11 @@ class Estimator:
         self.tic = np.asarray(cfg.extrinsic_t, float)
         self.ex_calib_done = cfg.estimate_extrinsic != 2
         self._ex_buf = ExRotBuffer.empty(64, dtype, self.device)
+        # RANSAC draws of the calibration's essential solve: `ex_gumbel(shape,
+        # frame_count)` returns Gumbel [64, L] float32 (a test substitutes
+        # the reference's jax.random draws)
+        self.ex_gumbel = lambda shape, seed: gumbel_draw(
+            shape, torch.Generator(device=self.device).manual_seed(seed), self.device)
 
         self.clear_state()
 
@@ -690,11 +695,10 @@ class Estimator:
         if both.sum() < 9:
             return
         # camera rotation from the essential solve between the two frames
-        gen = torch.Generator(device=self.device).manual_seed(self.frame_count)
         t = lambda a: torch.as_tensor(a, dtype=self.dtype).to(self.device)  # noqa: E731
         rel = solve_relative_pose(t(self.db.pt[:, col - 1]), t(self.db.pt[:, col]),
                                   torch.as_tensor(both).to(self.device),
-                                  gumbel_draw((N_HYP, self.L), gen, self.device),
+                                  self.ex_gumbel((N_HYP, self.L), self.frame_count).to(self.device),
                                   min_corres=9, min_inliers=8)
         if not bool(rel.ok):
             return
