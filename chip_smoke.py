@@ -31,8 +31,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      to the start of the result copy, and float64 estimator tensors on the
      card; time each frame (split by the pipeline tracer's spans) and
      profile one VIO step;
-  6. on phase 5's inputs, the serial pipeline with the eager step (timed;
-     its trajectory beside phase 5's) and the overlapped pipeline with the
+  6. on phase 5's inputs, the serial pipeline with the eager step over
+     their first 4 s (timed; its trajectory beside phase 5's) and the overlapped pipeline with the
      graphed step (the same events as phase 5, max |Δp| ≤ 1e-6 m); the
      graphed step against the eager one on the same blob and prior (≤ 1e-9
      relative, both marginalizations); one step of each in turns, and the
@@ -133,8 +133,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      (`tools/port_synthetic_reference.py`), initialized, NON_LINEAR at the
      end; 11e tests/test_init_health.py's corrupted-init 6 s proxy through
      the port's `run_proxy` (absorbed, or a reboot and a new
-     initialization); 11f `python -m vins_tpu_torch.run_synthetic` as a
-     subprocess, exit 0.  No hand kernel runs in 11a-11d.
+     initialization); 11f `python -m vins_tpu_torch.run_synthetic --frames
+     40` as a subprocess, exit 0.  No hand kernel runs in 11a-11d.
+  12. the proxy entry points as a user calls them (`run_proxy.main`,
+     `run_longrun.main`, float64): 12a tests/test_proxy_e2e.py's 3 s proxy
+     and its bounds, one `lk_pyramid` launch per tracked frame, ms per VIO
+     frame by span; 12b the looped proxy past the circuit's first revisit
+     with `--debug-image` (a verified loop, none false, one 480×1504 image
+     per loop, the corrected ATE bound; the worker's ms drawing each image
+     beside its ms per keyframe); 12c `run_longrun` just past one lap (the
+     same loop and ATE checks).  Each last line is a JSON object
+     with the JAX tool's keys.
 Then it prints a `kernels` JSON line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 
@@ -145,6 +154,7 @@ last `{"ok": true, "device": {...}}`.
     python3 chip_smoke.py --phases 9      # build, then only the multi-stream pipeline
     python3 chip_smoke.py --phases 10     # build, then only the sharded solve
     python3 chip_smoke.py --phases 11     # build, then only the synthetic estimator
+    python3 chip_smoke.py --phases 12     # build, then only the proxy entry points
 """
 from __future__ import annotations
 
@@ -185,6 +195,11 @@ LIMITS = dict(mean_count_min=0.85 * 102.41, sampson_median_max=1.5 * 0.0650,
 JAX_ATE_M, JAX_INIT_PUB = 0.38646, 15
 LIMITS.update(ate_max_m=min(0.35, 2.0 * JAX_ATE_M), init_pub_max=JAX_INIT_PUB + 5)
 PROXY_SECONDS = 10.0
+# Phase 6 runs the eager serial pipeline over the first EAGER_SECONDS of
+# phase 5's inputs (10 s until the proxy entry points' phase 12 needed its
+# time): initialization at published frame 11 and ~28 VIO frames, enough for
+# the timing, the events and the trajectory against phase 5's same frames.
+EAGER_SECONDS = 4.0
 
 # Phase 7: the loop back-end (PoseGraph with the port config's defaults:
 # min_loop_num 25, pg_opt_interval 2 s) on keyframes rendered on the card in
@@ -1026,6 +1041,14 @@ def feed(pipe, inp, shift: float = 0.0, spans=SPANS):
     return recs, [e["kind"] for e in flushed], time.perf_counter() - t_run
 
 
+def head(inp, seconds: float):
+    """The first `seconds` of proxy inputs at 10 Hz."""
+    n = int(round(seconds * 10))
+    return inp._replace(t=inp.t[:n], frames=inp.frames[:n], p_gt=inp.p_gt[:n],
+                        q_gt=inp.q_gt[:n], imu_t=inp.imu_t[:n - 1], acc=inp.acc[:n - 1],
+                        gyr=inp.gyr[:n - 1])
+
+
 def per_vio_frame(recs) -> dict:
     """Medians over the calls that returned a "vio" event."""
     vio = [r for r in recs if r["kind"] == "vio"]
@@ -1146,10 +1169,12 @@ def phase_modes(dev, inp, pipe5, ref_kinds):
     ref = list(pipe5.trajectory)
 
     eager = proxy.make_pipeline(device=dev, cuda_graph=False, loop_closure=False)
-    recs, flushed, run_s = feed(eager, inp)
-    check(kinds_of(recs, flushed) == ref_kinds, "phase 6: the eager serial run's events differ")
-    out["serial_eager"] = per_vio_frame(recs) | {"run_s": run_s}
-    out["serial_eager_vs_graph_max_dp_m"] = max_dp(ref, eager.trajectory)
+    recs, flushed, run_s = feed(eager, head(inp, EAGER_SECONDS))
+    kinds = kinds_of(recs, flushed)
+    check("vio" in kinds and kinds == ref_kinds[:len(kinds)],
+          f"phase 6: the eager serial run's events differ from phase 5's first {len(kinds)}")
+    out["serial_eager"] = per_vio_frame(recs) | {"run_s": run_s, "seconds": EAGER_SECONDS}
+    out["serial_eager_vs_graph_max_dp_m"] = max_dp(ref[:len(eager.trajectory)], eager.trajectory)
 
     over = proxy.make_pipeline(device=dev, overlap=True, loop_closure=False)
     over.estimator.sync_check = True
@@ -2799,7 +2824,8 @@ def phase_synthetic(dev, card: str) -> dict:
     # 11f: the entry point, as a user runs it
     t0 = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run([sys.executable, "-m", "vins_tpu_torch.run_synthetic"], cwd=root,
+    proc = subprocess.run([sys.executable, "-m", "vins_tpu_torch.run_synthetic", "--frames",
+                           str(SYN["e2e_frames"])], cwd=root,
                           capture_output=True, text=True, timeout=300)
     check(proc.returncode == 0, f"phase 11f: run_synthetic exited {proc.returncode}:\n"
           f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
@@ -2815,19 +2841,276 @@ def phase_synthetic(dev, card: str) -> dict:
     return out
 
 
+# ---- 12. the proxy entry points ------------------------------------------------------
+# `run_proxy.main` and `run_longrun.main` as a user calls them, float64 on the
+# card.  12a: tests/test_proxy_e2e.py's 3 s proxy (seed 0, period 16 s, loop
+# off) and its bounds (:23-37): initialized with only "vio" after it, no
+# failure, more than 80 tracked features of 150, SE(3) ATE < 0.35 m.  12b:
+# the looped proxy (the pose graph on its worker) with `--debug-image`, past
+# the circuit's first revisit; 12c: `run_longrun` just past one lap of the
+# period-25 s, radius-6 m circuit, not its 200 s.  The durations: on the card
+# 12b verified its first loop at t = 18.9 s in all nine of its runs and 12c at
+# t = 29.6 s in all seven (NVIDIA H100 80GB HBM3, 700.00 W; 12b runs dropped
+# up to two keyframes under backpressure and still did; the JAX
+# tool's looped seed-0 run at t = 19.1 s, results/proxy_loop_seed0.json):
+# 12b keeps 2.1 s past it, 12c 1.4 s.  12b-12c:
+# phase 8's loop checks (a verified loop, none false, a 4-DoF solve, a
+# corrected pose per VIO pose) and the corrected ATE ≤ 1.15 × VIO + 0.02 m
+# (tests/test_euroc_replay_loop.py:55-63); 12b one (480, 1504, 3) uint8
+# loop-match image per verified loop.  The JSON keys are the JAX tools'
+# (tools/run_proxy.py:99-131, tools/run_longrun.py:71-88).
+E2E_SECONDS, E2E_VALID_MIN, E2E_ATE_MAX_M = 3.0, 80, 0.35
+LOOP12_SECONDS, LONGRUN_SECONDS = 21.0, 31.0
+RUN_PROXY_KEYS = ("duration_s", "period_s", "seed", "imu_noise", "min_loop_num",
+                  "frames_published", "kinds", "reboots", "loops_detected", "loops", "gates",
+                  "gt_path_m", "ate_vio_m", "ate_vio_pct_path", "ate_vio_4dof_m", "wall_s",
+                  "stage_ms")
+RUN_PROXY_LOOP_KEYS = ("ate_corrected_m", "ate_corrected_pct_path", "pose_graph_keyframes",
+                       "pose_graph_optimizes", "ate_pose_graph_path_m")
+RUN_LONGRUN_KEYS = ("duration_s", "radius_m", "gt_path_m", "frames", "keyframes", "loops",
+                    "relo_refined_edges", "pg_optimizes", "pg_dropped", "reboots", "ate_vio_m",
+                    "ate_vio_pct_path", "ate_corrected_live_m", "ate_corrected_pct_path",
+                    "ate_pose_graph_path_m", "improvement_live_x")
+
+
+class FrameLog:
+    """While open, records every `Pipeline.process_image` call: the kind of
+    the event it returned, its host ms (the serial pipeline's spans wait for
+    the device; the overlapped one's do not), the ms of the tracer's spans in
+    it, and whether it handed a keyframe to the pose graph."""
+
+    def __enter__(self):
+        from vins_tpu_torch.pipeline import Pipeline
+
+        self.recs = []
+        self._saved = process, build = Pipeline.process_image, Pipeline._build_keyframe_payload
+        recs = self.recs
+
+        def timed(pipe, img, t, gumbel=None):
+            stats = pipe.tracer.stats
+            n0 = {k: stats.count(k) for k in SPANS}
+            pipe._handed = False
+            t0 = time.perf_counter()
+            ev = process(pipe, img, t, gumbel)
+            rec = dict(kind=ev.get("kind"), ms=(time.perf_counter() - t0) * 1e3,
+                       keyframe=pipe._handed)
+            rec.update({k: stats.last(k) if stats.count(k) > n0[k] else 0.0 for k in SPANS})
+            recs.append(rec)
+            return ev
+
+        def handed(pipe):
+            payload = build(pipe)
+            pipe._handed = pipe._handed or payload is not None
+            return payload
+
+        Pipeline.process_image, Pipeline._build_keyframe_payload = timed, handed
+        return self
+
+    def __exit__(self, *exc):
+        from vins_tpu_torch.pipeline import Pipeline
+
+        Pipeline.process_image, Pipeline._build_keyframe_payload = self._saved
+
+    def stats(self, keep) -> dict:
+        """Median and p90 host ms, and the spans' medians, of the calls `keep`
+        selects."""
+        rs = [r for r in self.recs if keep(r)]
+        if not rs:
+            return dict(n=0, median_ms=math.nan, p90_ms=math.nan)
+        ms = [r["ms"] for r in rs]
+        return dict(n=len(rs), median_ms=float(np.median(ms)), p90_ms=float(np.percentile(ms, 90)),
+                    **{f"{k}_ms": float(np.median([r[k] for r in rs])) for k in SPANS})
+
+
+def entry_point(main, argv: list, tag: str, keys: tuple) -> tuple:
+    """`main(argv)` with its standard output captured: its last line must be
+    a JSON object with the JAX tool's `keys` equal to what `main` returned.
+    Returns (result, run, the lines printed, seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res, run = main(argv)
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    check(bool(lines), f"{tag}: nothing printed")
+    try:
+        printed = json.loads(lines[-1])
+    except json.JSONDecodeError:
+        printed = None
+    check(isinstance(printed, dict) and set(keys) <= set(printed),
+          f"{tag}: the last line is not a JSON object with the JAX tool's keys: {lines[-1][:300]}")
+    check(json.dumps(printed) == json.dumps(res),
+          f"{tag}: the last line is not the run's result")
+    return res, run, lines, seconds
+
+
+def ate_bound(res: dict, vio: str, corrected: str, tag: str) -> None:
+    check(np.isfinite(res[vio]) and np.isfinite(res[corrected])
+          and res[corrected] <= 1.15 * res[vio] + 0.02,
+          f"{tag}: corrected ATE {res[corrected]} m > 1.15 × VIO {res[vio]} m + 0.02 m")
+
+
+def phase_proxy_entry() -> dict:
+    """Phase 12: the proxy entry points on the card (12a-12c)."""
+    import tempfile
+
+    import torch
+
+    from vins_tpu_torch import run_longrun, run_proxy
+    from vins_tpu_torch.frontend.klt_cuda import lk_level, lk_pyramid
+    from vins_tpu_torch.sim import proxy
+
+    t_phase = time.perf_counter()
+    out = {}
+    cuda = ["--device", "cuda", "--dtype", "float64", "--seed", "0"]
+
+    # 12a: the 3 s proxy of tests/test_proxy_e2e.py
+    lk_pyramid.launches = lk_level.launches = 0
+    with FrameLog() as fl:
+        res, run, _, sec = entry_point(run_proxy.main, ["--duration", str(E2E_SECONDS),
+                                                        "--period", "16", "--no-loop", *cuda],
+                                       "12a", RUN_PROXY_KEYS)
+    pipe, est = run.pipe, run.pipe.estimator
+    kinds = [e.get("kind") for e in run.events]
+    check("initialized" in kinds, f"12a: the estimator never initialized: {kinds}")
+    i0 = kinds.index("initialized")
+    check(all(k == "vio" for k in kinds[i0 + 1:]), f"12a: events after initialization {kinds[i0:]}")
+    check(est.failures == 0, f"12a: {est.failures} estimator failures")
+    valid = int(pipe.tracker.valid.sum())
+    check(valid > E2E_VALID_MIN, f"12a: {valid} tracked features, not more than {E2E_VALID_MIN}")
+    ate = proxy.ate_rmse_tum(pipe.trajectory, run.t, run.p_gt)
+    check(np.isfinite(ate) and ate < E2E_ATE_MAX_M and ate == res["ate_vio_m"],
+          f"12a: ATE {ate} m (printed {res['ate_vio_m']}), limit {E2E_ATE_MAX_M} m")
+    n = int(round(E2E_SECONDS * 10))
+    launches = {"lk_pyramid": lk_pyramid.launches, "lk_level": lk_level.launches}
+    check(launches == {"lk_pyramid": n - 1, "lk_level": 0},
+          f"12a: launches {launches}, expected lk_pyramid once per tracked frame ({n - 1})")
+    steps = len(kinds) - i0
+    check(est._graph is not None and est._graph.replays == steps
+          and est.prior.J.dtype == torch.float64 and est.prior.J.device.type == "cuda",
+          f"12a: {est._graph and est._graph.replays} graph replays for {steps} VIO steps, prior "
+          f"{est.prior.J.dtype} on {est.prior.J.device}")
+    vio = fl.stats(lambda r: r["kind"] == "vio")
+    init = next(r for r in fl.recs if r["kind"] == "initialized")
+    out["a"] = dict(seconds=sec, frames=n, published=len(kinds), init_published_index=i0,
+                    vio_frames=len(kinds) - i0 - 1, failures=est.failures, tracked=valid,
+                    ate_se3_m=ate, limit_m=E2E_ATE_MAX_M, launches=launches, per_vio_frame=vio,
+                    init_frame_ms=init["ms"])
+    log(f"phase 12a: run_proxy --duration {E2E_SECONDS:g} --no-loop: initialized at published "
+        f"frame {i0}, then {len(kinds) - i0 - 1} vio, 0 failures, {valid} tracked features "
+        f"(> {E2E_VALID_MIN}), SE(3) ATE {ate:.4f} m (< {E2E_ATE_MAX_M}); lk_pyramid "
+        f"{launches['lk_pyramid']} launches = {n - 1} tracked frames; per VIO frame "
+        f"{vio['median_ms']:.2f} ms median, {vio['p90_ms']:.2f} ms p90 (front-end "
+        f"{vio['frontend_ms']:.2f} + estimator {vio['estimator_ms']:.2f} ms, medians); "
+        f"initialization frame {init['ms']:.1f} ms; {sec:.1f} s")
+
+    # 12b: looped, with the debug image; the image's cost is the worker's
+    # "loop_image" span (the projection and the drawing of each verified
+    # loop's image) beside its "pose_graph" span per keyframe; storing each
+    # keyframe's image keeps a reference to the frame the payload already
+    # carries, so the frame loop does no work for it
+    tag = "12b"
+    lk_pyramid.launches = lk_level.launches = 0
+    with tempfile.TemporaryDirectory() as d, FrameLog() as fl:
+        argv = ["--duration", str(LOOP12_SECONDS), "--period", "16", "--loop", *cuda,
+                "--debug-image", "--out-dir", d]
+        res, run, _, sec = entry_point(run_proxy.main, argv, tag,
+                                       RUN_PROXY_KEYS + RUN_PROXY_LOOP_KEYS)
+        files = sorted(f for f in os.listdir(d) if f.startswith("proxy_loopmatch_"))
+        image_bytes = 480 * 1504 * 3
+        heads = set()
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                raw = fh.read()
+            heads.add((raw[:-image_bytes], len(raw)))
+    pipe = run.pipe
+    n = int(round(LOOP12_SECONDS * 10))
+    check(lk_pyramid.launches == n - 1 and lk_level.launches == 0,
+          f"{tag}: {lk_pyramid.launches} lk_pyramid launches for {n - 1} tracked frames, "
+          f"lk_level {lk_level.launches}")
+    loops = loop_checks(pipe, truth_of(run), tag)
+    ate_bound(res, "ate_vio_m", "ate_corrected_m", tag)
+    header = b"P6\n1504 480\n255\n"
+    image = pipe.last_loop_image
+    check(len(files) == run.n_loops == res["loop_images"]
+          and heads == {(header, len(header) + image_bytes)}
+          and image is not None and image.shape == (480, 1504, 3) and image.dtype == np.uint8,
+          f"{tag}: {len(files)} loop-match files ({res['loop_images']} counted) for "
+          f"{run.n_loops} verified loops; headers and sizes {[(h[:20], m) for h, m in heads]}")
+    check(all(pipe.pose_graph.keyframes[e["index"]].image is not None
+              for e in pipe.pg_events if "index" in e),
+          f"{tag}: a keyframe without its image")
+    spans = pipe.pg_tracer.stats.snapshot()
+    check(spans.get("loop_image", {}).get("n") == run.n_loops,
+          f"{tag}: {spans.get('loop_image')} loop_image spans for {run.n_loops} loops")
+    out["b"] = dict(seconds=sec, lk_pyramid_launches=lk_pyramid.launches, loops=loops,
+                    failures=pipe.estimator.failures, kinds=res["kinds"],
+                    first_loop_t=res["loops"][0]["t"], ate_vio_m=res["ate_vio_m"],
+                    ate_corrected_m=res["ate_corrected_m"],
+                    ate_pose_graph_path_m=res["ate_pose_graph_path_m"],
+                    dropped=pipe.pg_dropped, loop_images=len(files),
+                    keyframe_frame=fl.stats(lambda r: r["keyframe"]),
+                    other_vio_frame=fl.stats(lambda r: r["kind"] == "vio" and not r["keyframe"]),
+                    worker_pose_graph_ms=spans["pose_graph"],
+                    worker_loop_image_ms=spans["loop_image"])
+    log(f"phase 12b: {json.dumps(out['b'])}")
+    im, pg = spans["loop_image"], spans["pose_graph"]
+    log(f"phase 12b: run_proxy --duration {LOOP12_SECONDS:g} --loop --debug-image: "
+        f"{loops['loops']} loops (first at t = {out['b']['first_loop_t']} s), none false, "
+        f"{len(files)} loop-match images (480, 1504, 3), {pipe.pg_dropped} keyframes dropped; "
+        f"the worker's loop_image {im['mean_ms']:.2f} ms mean, {im['max_ms']:.2f} ms max over "
+        f"{im['n']} loops, its pose_graph {pg['mean_ms']:.2f} ms mean over {pg['n']} "
+        f"keyframes; per keyframe frame on the frame loop "
+        f"{out['b']['keyframe_frame']['median_ms']:.2f} ms median; {sec:.1f} s")
+
+    # 12c: run_longrun just past one lap
+    lk_pyramid.launches = lk_level.launches = 0
+    with FrameLog() as fl:
+        res, run, lines, sec = entry_point(
+            run_longrun.main, ["--duration", str(LONGRUN_SECONDS), "--period", "25",
+                               "--radius", "6", *cuda], "12c", RUN_LONGRUN_KEYS)
+    pipe = run.pipe
+    n = int(round(LONGRUN_SECONDS * 10))
+    check(lk_pyramid.launches == n - 1 and lk_level.launches == 0,
+          f"12c: {lk_pyramid.launches} lk_pyramid launches for {n - 1} tracked frames, "
+          f"lk_level {lk_level.launches}")
+    loops = loop_checks(pipe, truth_of(run), "12c")
+    ate_bound(res, "ate_vio_m", "ate_corrected_live_m", "12c")
+    out["c"] = dict(seconds=sec, lk_pyramid_launches=lk_pyramid.launches, loops=loops, result=res,
+                    frame=fl.stats(lambda r: r["kind"] == "vio"),
+                    first_loop_t=min((float(e["stamp"]) for e in pipe.pg_events
+                                      if e.get("loop") is not None), default=math.nan))
+    log(f"phase 12c: {lines[-1]}")
+    log(f"phase 12c: run_longrun --duration {LONGRUN_SECONDS:g}: {loops['loops']} loops (first at "
+        f"t = {out['c']['first_loop_t']:.1f} s), none false, {loops['n_optimizes']} solves, ATE "
+        f"VIO {res['ate_vio_m']} m, corrected {res['ate_corrected_live_m']} m; {sec:.1f} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12: {out['seconds']:.1f} s of phase time")
+    return out
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12",
                     help="phases after the build to run; any other set than the default "
                          "prints no result lines")
     phases = {int(x) for x in ap.parse_args().phases.split(",")}
-    full = phases == {2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
+    full = phases == set(range(2, 13))
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
+    walls, last = {}, [time.perf_counter()]
+
+    def wall(name: str) -> None:
+        """Seconds since the previous mark, under `name`."""
+        now = time.perf_counter()
+        walls[name], last[0] = round(now - last[0], 1), now
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vins_tpu_torch import build
     from vins_tpu_torch.frontend.klt_cuda import WARPS_PER_BLOCK, lk_level, lk_pyramid
@@ -2862,6 +3145,7 @@ def main() -> int:
         f"{pyr_lib.lk_pyramid_smem_bytes(3, WARPS_PER_BLOCK)} B (3 levels, {WARPS_PER_BLOCK} "
         f"warp(s) per block); lk_level {lvl_lib.lk_level_smem_bytes(WIN, 32)} B at search 32, "
         f"{lvl_lib.lk_level_smem_bytes(WIN, 10)} B at search 10")
+    wall("0-1")
 
     # ---- 2. kernels against their plain versions ---------------------------
     if 2 in phases:
@@ -2869,20 +3153,24 @@ def main() -> int:
         worst = phase_levels(dev, gen)
         worst["lk_pyramid"] = max(worst["lk_pyramid"], phase_pyramid(dev, gen))
         phase_pyramid_shift(dev)
+        wall("2")
 
     # ---- 3. the front-end path -------------------------------------------------
     if 3 in phases or 4 in phases:
         seq, launches = phase_main(dev)
+        wall("3")
 
     # ---- 4. timing -------------------------------------------------------------
     if 4 in phases:
         t, bound, by, levels, frame = phase_timing(dev, seq)
         log("phase 4: front-end " + json.dumps(frame))
+        wall("4")
 
     # ---- 5. the main path end to end ---------------------------------------------
     if 5 in phases:
         launches5, pipeline, inp5, pipe5, kinds5 = phase_pipeline(dev)
         log("phase 5: " + json.dumps(pipeline))
+        wall("5")
 
     # ---- 6. the other modes, a restart, the replay ---------------------------------
     if 6 in phases:
@@ -2891,12 +3179,14 @@ def main() -> int:
         log("phase 6: " + json.dumps(modes))
         launches6, replayed = phase_replay(dev)
         log("phase 6: replay " + json.dumps(replayed))
+        wall("6")
 
     # ---- 7. the loop back-end -----------------------------------------------------
     if 7 in phases:
         loop = phase_loop(dev, card)
         log("phase 7: " + json.dumps({k: v for k, v in loop.items()
                                       if k not in ("times", "profile")}))
+        wall("7")
 
     # ---- 8. loop closure inside the pipeline, the looped replay ----------------------
     if 8 in phases:
@@ -2909,6 +3199,7 @@ def main() -> int:
         log("phase 8: " + json.dumps(looped))
         launches8c, looped_replay = phase_loop_replay(dev, replayed if 6 in phases else None)
         log("phase 8c: " + json.dumps(looped_replay))
+        wall("8")
 
     # ---- 9. the multi-stream pipeline -----------------------------------------------
     if 9 in phases:
@@ -2917,15 +3208,25 @@ def main() -> int:
         launches9, multistream = phase_multistream(dev, inp5 if 5 in phases else None)
         log("phase 9: " + json.dumps(multistream))
         log(f"phase 9: {time.perf_counter() - t9:.1f} s of phase time")
+        wall("9")
 
     # ---- 10. the landmark-sharded window solve --------------------------------------
     if 10 in phases:
         phase_sharded()
+        wall("10")
 
     # ---- 11. the synthetic estimator --------------------------------------------------
     if 11 in phases:
         synthetic = phase_synthetic(dev, card)
         log("phase 11: " + json.dumps(synthetic))
+        wall("11")
+
+    # ---- 12. the proxy entry points ---------------------------------------------------
+    if 12 in phases:
+        entry = phase_proxy_entry()
+        log("phase 12: " + json.dumps(entry))
+        wall("12")
+    log(f"wall seconds by phase: {json.dumps(walls)}, {sum(walls.values()):.1f} in all")
     if not full:
         return 0
 
@@ -2939,6 +3240,9 @@ def main() -> int:
              launches_loop_serial=launches8["serial"], launches_loop_overlap=launches8["overlap"],
              launches_loop_replay=launches8c["loop"], launches_multistream=launches9,
              launches_corrupted_init_proxy=synthetic["launches_11e"]["lk_pyramid"],
+             launches_proxy_3s=entry["a"]["launches"]["lk_pyramid"],
+             launches_proxy_loop=entry["b"]["lk_pyramid_launches"],
+             launches_longrun=entry["c"]["lk_pyramid_launches"],
              ms=t["lk_pyramid"], **common, launch_floor_ms=t["launch_floor"],
              warps_per_block=WARPS_PER_BLOCK,
              ms_by_warps_per_block={w: t[f"lk_pyramid_w{w}"] for w in WARPS},

@@ -29,6 +29,9 @@ def imported_modules(path: str):
 
 def test_the_port_has_files():
     assert len(FILES) >= 30
+    rel = {os.path.relpath(p, ROOT) for p in FILES}
+    assert {"vins_tpu_torch/utils/viz.py", "vins_tpu_torch/run_proxy.py",
+            "vins_tpu_torch/run_longrun.py"} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: os.path.relpath(p, ROOT))

@@ -129,14 +129,71 @@ def test_ate_under_bound(runs):
 
 
 def test_unported_modes_raise():
-    """Of the modes of `Pipeline`, only the loop-match debug image is not
-    ported (ROADMAP Queue 1 item 12): it raises.  Loop closure
-    (tests/test_torch_pipeline_loop.py) and the overlapped mode
-    (tests/test_torch_overlap.py) are."""
-    cfg = dataclasses.replace(convert.vins_config(make_cfg()), loop_closure=True,
-                              debug_image=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        TPipeline(cfg, tproxy.euroc_camera(device="cpu"), device="cpu")
+    """Every mode of `Pipeline` is ported.  With loop closure and the debug
+    image it builds on the CPU, hands each keyframe's image to the pose
+    graph in its payload, and the pose graph's keyframe keeps it (without
+    `debug_image` it keeps none); the overlapped mode builds too."""
+    rng = np.random.default_rng(0)
+    cam = tproxy.euroc_camera(device="cpu")
+    kept = []
+    for debug in (True, False):
+        cfg = dataclasses.replace(convert.vins_config(make_cfg()), loop_closure=True,
+                                  debug_image=debug)
+        pipe = TPipeline(cfg, cam, device="cpu")
+        L = cfg.max_landmarks
+        for k in range(2):
+            img = torch.from_numpy(rng.uniform(0, 255, (480, 752)).astype(np.float32))
+            payload = {"t": 1.0 + k, "p_b": np.array([0.3 * k, 0, 1]),
+                       "q_b": np.array([1.0, 0, 0, 0]), "pts3d": rng.normal(size=(L, 3)),
+                       "pts2d": rng.normal(size=(L, 2)) * 0.2,
+                       "uv": rng.uniform(0, [752, 480], (L, 2)),
+                       "fids": np.arange(L), "n_landmarks": 40, "tic": np.zeros(3),
+                       "sequence": 1, "img": img}
+            res = pipe._pg_process(payload)
+            assert res.get("loop") is None and "loop_image" not in res
+            kf = pipe.pose_graph.keyframes[-1]
+            kept.append(kf.image is not None and torch.equal(kf.image, img))
+        assert pipe.last_loop_image is None
+    assert kept == [True, True, False, False]
     pipe = TPipeline(convert.vins_config(make_cfg()), tproxy.euroc_camera(device="cpu"),
                      overlap=True, device="cpu")
     assert pipe.overlap and pipe.flush_frames() == []
+
+
+def test_loop_image_sink(monkeypatch):
+    """With `debug_image`, a verified loop's match image is drawn once, under
+    the pose-graph tracer's "loop_image" span, into `last_loop_image` and to
+    `loop_image_sink` with the keyframe's index; the result keeps no image."""
+    rng = np.random.default_rng(1)
+    cfg = dataclasses.replace(convert.vins_config(make_cfg()), loop_closure=True,
+                              debug_image=True, fast_relocalization=False)
+    pipe = TPipeline(cfg, tproxy.euroc_camera(device="cpu"), device="cpu")
+    L = cfg.max_landmarks
+    match = {"old_index": 0, "ids": np.arange(5, 25),
+             "pts_old": rng.uniform([-0.5, -0.3], [0.5, 0.3], (20, 2))}
+    add = pipe.pose_graph.add_keyframe
+
+    def looped(kf):
+        res = add(kf)
+        if res["index"] == 1:
+            pipe.pose_graph.last_match, res["loop"] = match, 0
+        return res
+
+    monkeypatch.setattr(pipe.pose_graph, "add_keyframe", looped)
+    got = []
+    pipe.loop_image_sink = lambda index, img: got.append((index, img))
+    results = []
+    for k in range(2):
+        payload = {"t": 1.0 + k, "p_b": np.array([0.3 * k, 0, 1]),
+                   "q_b": np.array([1.0, 0, 0, 0]), "pts3d": rng.normal(size=(L, 3)),
+                   "pts2d": rng.normal(size=(L, 2)) * 0.2,
+                   "uv": rng.uniform(0, [752, 480], (L, 2)),
+                   "fids": np.arange(L), "n_landmarks": 40, "tic": np.zeros(3),
+                   "sequence": 1,
+                   "img": torch.from_numpy(rng.uniform(0, 255, (480, 752)).astype(np.float32))}
+        results.append(pipe._pg_process(payload))
+    assert [r.get("loop") for r in results] == [None, 0]
+    assert not any("loop_image" in r for r in results)
+    assert len(got) == 1 and got[0][0] == 1 and got[0][1] is pipe.last_loop_image
+    assert got[0][1].shape == (480, 2 * 752, 3) and got[0][1].dtype == np.uint8
+    assert pipe.pg_tracer.stats.count("loop_image") == 1

@@ -343,16 +343,17 @@ def test_worker_queue_semantics():
 
 
 def test_construct_and_write_trajectories(tmp_path):
-    """Pipeline(loop_closure=True) constructs, serial and overlapped; the
-    loop-match debug image raises until it is ported; both TUM files are
-    written as the JAX pipeline writes them."""
+    """Pipeline(loop_closure=True) constructs, serial and overlapped, and
+    with the loop-match debug image; both TUM files are written as the JAX
+    pipeline writes them."""
     for overlap in (False, True):
         pipe = port_pipeline()
         pipe2 = TPipeline(pipe.cfg, pipe.camera, device="cpu", overlap=overlap)
         assert pipe2.pose_graph is not None and pipe2.overlap == overlap
         assert not pipe2.pg_async and pipe2.pg_tracer is pipe2.tracer
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        port_pipeline(debug_image=True)
+    debug = port_pipeline(debug_image=True)
+    assert debug.cfg.debug_image and debug.pose_graph is not None
+    assert debug.last_loop_image is None
     off = TPipeline(dataclasses.replace(pipe.cfg, loop_closure=False), pipe.camera,
                     device="cpu", loop_closure=False)
     assert off.pose_graph is None

@@ -17,7 +17,11 @@ vins_estimator and pose_graph over topics) as direct calls:
   * fast relocalization: a verified loop's matches go back into the next
     window solve, whose refined loop edge updates the pose graph
     (estimator_node.cpp:266-291, pose_graph.cpp:889-923),
-  * IMU-rate propagation output (estimator_node.cpp:42-96).
+  * IMU-rate propagation output (estimator_node.cpp:42-96),
+  * the textual report (`print_statistics`) and the debug images: the
+    track overlay and, with `cfg.debug_image`, the loop-match image of
+    every verified loop (`last_loop_image`, as in the JAX package, and
+    each image to `loop_image_sink` when a caller sets one).
 
 Two modes, with the same estimator inputs in the same order and so the same
 trajectory: serial, where each published frame's front-end result is
@@ -66,10 +70,6 @@ class Pipeline:
         self.camera = camera
         self.device = torch.device(device)
         self.loop_closure = cfg.loop_closure if loop_closure is None else loop_closure
-        if self.loop_closure and cfg.debug_image:
-            raise NotImplementedError(
-                "debug_image needs utils/viz.draw_loop_match, which is not ported yet "
-                "(ROADMAP Queue 1 item 12)")
         self.overlap = bool(cfg.overlap) if overlap is None else bool(overlap)
         mask = circular_fov_mask(cfg.image_height, cfg.image_width) if cfg.fisheye else None
         self.tracker = FeatureTracker(
@@ -136,6 +136,10 @@ class Pipeline:
         self.pg_async = bool(cfg.pg_async) and self.pose_graph is not None
         self.pg_tracer = Tracer() if self.pg_async else self.tracer
         self.pg_events: list = []    # pose-graph results, in order
+        self.last_loop_image = None  # the newest loop-match image (cfg.debug_image)
+        # called as sink(keyframe index, image) with every loop-match image,
+        # on the thread that draws it (the worker with pg_async)
+        self.loop_image_sink = None
         self.pg_dropped = 0          # keyframes dropped under backpressure
         self._relo_queue: list = []  # worker → frame loop fast-relocalization matches
         if self.pg_async:
@@ -450,6 +454,7 @@ class Pipeline:
             points_2d_norm=payload["pts2d"], window_desc=wdesc, window_valid=window_valid,
             fast_pts_norm=fpts, fast_desc=fdesc, fast_valid=fok, sequence=payload["sequence"],
             point_ids=payload["fids"], window_uv=payload["uv"],
+            image=img if self.cfg.debug_image else None,
             fast_3d=h[:3 * N_FAST].reshape(N_FAST, 3), fast_3d_valid=h[3 * N_FAST:] > 0.5)
         with self.pg_tracer.span("pg_add"):
             res = self.pose_graph.add_keyframe(kf)
@@ -462,7 +467,33 @@ class Pipeline:
                 self._relo_queue.append(match)
             else:
                 self._apply_relo(match)
+        if res.get("loop") is not None and self.cfg.debug_image:
+            with self.pg_tracer.span("loop_image"):
+                self.last_loop_image = self._render_loop_match(kf)
+            if self.last_loop_image is not None and self.loop_image_sink is not None:
+                self.loop_image_sink(res["index"], self.last_loop_image)
         return res
+
+    def _render_loop_match(self, kf):
+        """Side-by-side loop-match image (keyframe.cpp:416-468's DEBUG_IMAGE
+        loop_match) from the stored keyframe images: the old keyframe's
+        matched points (normalized coordinates) projected to pixels on the
+        pipeline's device, the current keyframe's pixels of the matched ids;
+        the images go to the host only for the drawing."""
+        from .utils.viz import draw_loop_match
+
+        match = self.pose_graph.last_match
+        if match is None or kf.image is None:
+            return None
+        old = self.pose_graph.keyframes[match["old_index"]]
+        if old.image is None:
+            return None
+        pts = torch.as_tensor(np.asarray(match["pts_old"], float), device=self.device)
+        rays = torch.cat([pts, torch.ones_like(pts[:, :1])], dim=1)
+        uv_old = self.camera.project(rays)
+        id2uv = {int(i): kf.window_uv[k] for k, i in enumerate(kf.point_ids)}
+        uv_cur = np.stack([id2uv.get(int(i), np.zeros(2)) for i in match["ids"]])
+        return draw_loop_match(kf.image, old.image, uv_cur, uv_old)
 
     def _apply_relo(self, match: dict):
         """A loop match back through the estimator (the reference's
@@ -481,6 +512,42 @@ class Pipeline:
             self.pose_graph.update_keyframe_loop(self._relo_kf_index, relo["rel_t"],
                                                  relo["rel_q"], relo["rel_yaw"])
             self._relo_kf_index = None
+
+    def debug_track_overlay(self):
+        """Tracking overlay of the latest processed frame
+        (feature_tracker_node.cpp:167-201); None before the first frame."""
+        from .utils.viz import draw_track_overlay
+
+        tr = self.tracker
+        if tr.prev_img is None:
+            return None
+        m = tr.valid
+        return draw_track_overlay(tr.prev_img, tr.pts[m], tr.track_cnt[m],
+                                  window=self.cfg.window * 2)
+
+    def print_statistics(self) -> str:
+        """Textual report (printStatistics, visualization.cpp:92-137): pose,
+        cost and failures, extrinsics, td, path length, the pose graph, then
+        the stage timings (the frame loop's tracer, then the pose-graph
+        worker's when it has its own)."""
+        est = self.estimator
+        p = est.p[est.W]
+        lines = [f"position: [{p[0]:.3f} {p[1]:.3f} {p[2]:.3f}]  "
+                 f"cost: {est.last_cost:.3e}  failures: {est.failures}",
+                 f"extrinsic tic: {np.round(est.tic, 4).tolist()}  "
+                 f"qic: {np.round(est.qic, 5).tolist()}  td: {est.td * 1e3:.2f} ms"]
+        if len(self.trajectory) >= 2:
+            pp = np.stack([e[1] for e in self.trajectory])
+            lines.append(f"path length: {np.linalg.norm(np.diff(pp, axis=0), axis=1).sum():.2f} m "
+                         f"over {len(self.trajectory)} frames")
+        if self.pose_graph is not None:
+            nl = sum(1 for k in self.pose_graph.keyframes if k.loop_index >= 0)
+            lines.append(f"pose graph: {len(self.pose_graph.keyframes)} keyframes, "
+                         f"{nl} loop edges")
+        lines.append(self.tracer.stats.report())
+        if self.pg_tracer is not self.tracer and self.pg_tracer.stats.snapshot():
+            lines.append(self.pg_tracer.stats.report())
+        return "\n".join(lines)
 
     def landmarks_world(self) -> np.ndarray:
         """The solved landmarks in world coordinates (pubPointCloud's

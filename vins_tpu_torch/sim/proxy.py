@@ -30,10 +30,10 @@ TIC = (0.05, -0.02, 0.03)
 BA = (0.02, -0.01, 0.015)      # true accelerometer bias of the proxy IMU
 BG = (0.002, 0.003, -0.001)    # true gyroscope bias
 FOCAL = 460.0
-# the proxy runs' scene (vins_tpu/sim/proxy.py): the circuit of radius 4 m
-# and period 16 s, pixel noise σ = 2, 96 texture components, seed 0, a
-# 200 Hz IMU; the pipeline publishes 10 Hz frames, the front-end cell tracks
-# 20 Hz ones (HZ)
+# the proxy's default scene (vins_tpu/sim/proxy.py:79-91): the circuit of
+# radius 4 m and period 16 s, pixel noise σ = 2, 96 texture components, seed
+# 0, a 200 Hz IMU; the pipeline publishes 10 Hz frames, the front-end cell
+# tracks 20 Hz ones (HZ)
 HZ, RADIUS, PERIOD, PIX_NOISE, TEX_K, SEED, IMU_HZ = 20.0, 4.0, 16.0, 2.0, 96, 0, 200.0
 
 
@@ -151,28 +151,36 @@ class ProxyInputs(NamedTuple):
 
 
 def proxy_inputs(duration: float = 10.0, t0: float = 1.0, frame_hz: float = 10.0,
-                 device="cuda", room: Room | None = None) -> ProxyInputs:
+                 device="cuda", room: Room | None = None, period: float = PERIOD,
+                 radius: float = RADIUS, imu_hz: float = IMU_HZ, seed: int = SEED,
+                 imu_noise: bool = True, pix_noise: float = PIX_NOISE,
+                 tex_k: int = TEX_K) -> ProxyInputs:
     """The proxy run's inputs (vins_tpu/sim/proxy.py:79-155): frames at
-    `frame_hz` from t0 of the textured room along `Trajectory.circuit`,
-    rendered on `device` with Gaussian pixel noise from a seeded CPU
-    generator (the same noise on every device), and the IMU between frames
-    with white noise and a bias random walk drawn from
-    `np.random.default_rng(SEED)` in the reference's order (per sample: ba
-    walk, bg walk, accelerometer noise, gyroscope noise).  `room` replaces
-    the port's own room (`jax_proxy_room` gives the JAX proxy's)."""
-    rng = np.random.default_rng(SEED)
-    traj = Trajectory.circuit(radius=RADIUS, period=PERIOD, height=1.0)
+    `frame_hz` from t0 of the textured room (`Room.make(seed + 7, k=tex_k)`)
+    along `Trajectory.circuit(radius, period)`, rendered on `device` with
+    Gaussian pixel noise of σ = `pix_noise` from a CPU generator seeded
+    `seed + 13` (the same noise on every device), and the IMU at `imu_hz`
+    between frames with white noise and a bias random walk drawn from
+    `np.random.default_rng(seed)` in the reference's order (per sample: ba
+    walk, bg walk, accelerometer noise, gyroscope noise; with `imu_noise`
+    off the draws are made and scaled by 0, so the sensor is exact with the
+    fixed biases).  `room` replaces the port's own room (`jax_proxy_room`
+    gives the JAX proxy's).  Every frame is kept: 1.44 MB each."""
+    rng = np.random.default_rng(seed)
+    traj = Trajectory.circuit(radius=radius, period=period, height=1.0)
     cam = euroc_camera(device=device)
-    ren = RoomRenderer(cam, EUROC_H, EUROC_W, room=room or Room.make(SEED + 7, k=TEX_K, device=device),
+    ren = RoomRenderer(cam, EUROC_H, EUROC_W, room=room or Room.make(seed + 7, k=tex_k, device=device),
                        tic=TIC, Ric=np.asarray(R_IC_FORWARD))
-    gen = torch.Generator().manual_seed(SEED + 13)
+    gen = torch.Generator().manual_seed(seed + 13)
 
     # discrete sensor noise: white σ_d = n·√hz; bias random-walk step σ = w·√dt
-    dt_i = 1.0 / IMU_HZ
-    sig_a, sig_g = 0.02 * np.sqrt(IMU_HZ), 0.0017 * np.sqrt(IMU_HZ)
-    wba, wbg = 0.0004 * np.sqrt(dt_i), 2e-5 * np.sqrt(dt_i)
+    dt_i = 1.0 / imu_hz
+    sig_a = 0.02 * np.sqrt(imu_hz) if imu_noise else 0.0
+    sig_g = 0.0017 * np.sqrt(imu_hz) if imu_noise else 0.0
+    wba = 0.0004 * np.sqrt(dt_i) if imu_noise else 0.0
+    wbg = 2e-5 * np.sqrt(dt_i) if imu_noise else 0.0
     n_frames = int(round(duration * frame_hz))
-    n_sub = int(round(IMU_HZ / frame_hz))
+    n_sub = int(round(imu_hz / frame_hz))
     t = t0 + np.arange(n_frames) / frame_hz
     imu_t = (t[1:] - 1.0 / frame_hz)[:, None] + np.arange(1, n_sub + 1)[None, :] * dt_i
     a_true, w_true = traj.imu_at_times(torch.from_numpy(imu_t.reshape(-1)),
@@ -189,8 +197,11 @@ def proxy_inputs(duration: float = 10.0, t0: float = 1.0, frame_hz: float = 10.0
     frames, p_gt, q_gt = [], [], []
     for ti in t:
         p, q = traj.pos_fn(ti), traj.q(ti)
-        noise = PIX_NOISE * torch.randn((EUROC_H, EUROC_W), generator=gen)
-        frames.append(torch.clamp(ren.render_device(p, q) + noise.to(device), 0.0, 255.0))
+        img = ren.render_device(p, q)
+        if pix_noise > 0:
+            noise = pix_noise * torch.randn((EUROC_H, EUROC_W), generator=gen)
+            img = torch.clamp(img + noise.to(device), 0.0, 255.0)
+        frames.append(img)
         p_gt.append(p.numpy())
         q_gt.append(q.numpy())
     shape = (n_frames - 1, n_sub, 3)
@@ -208,13 +219,16 @@ class ProxyRun(NamedTuple):
 
 
 def run_proxy(duration: float = 10.0, pipe: Pipeline | None = None,
-              inputs: ProxyInputs | None = None, device="cuda") -> ProxyRun:
+              inputs: ProxyInputs | None = None, device="cuda", progress=None,
+              **scene) -> ProxyRun:
     """The proxy run end to end (vins_tpu/sim/proxy.py:79-163): per frame
     the IMU samples since the last frame, then the image; at the end the
     pose-graph worker is drained, the pending 4-DoF solve forced and the
-    worker stopped."""
+    worker stopped.  Without `inputs`, `proxy_inputs(duration, **scene)`
+    makes them (`scene`: period, radius, frame_hz, imu_hz, seed, imu_noise,
+    pix_noise, tex_k).  `progress(fi, n, ev)` is called every 20 frames."""
     pipe = pipe or make_pipeline(device=device)
-    inp = inputs or proxy_inputs(duration=duration, device=device)
+    inp = inputs or proxy_inputs(duration=duration, device=device, **scene)
     ts, p_gt, q_gt, events = [], [], [], []
     for fi, t in enumerate(inp.t):
         if fi > 0:
@@ -226,6 +240,8 @@ def run_proxy(duration: float = 10.0, pipe: Pipeline | None = None,
             p_gt.append(inp.p_gt[fi])
             q_gt.append(inp.q_gt[fi])
             events.append(ev)
+        if progress and fi % 20 == 0:
+            progress(fi, len(inp.t), ev)
     pipe.pg_join()
     pipe.shutdown()
     n_loops = sum(1 for e in pipe.pg_events if e.get("loop") is not None)
