@@ -32,7 +32,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      card; time each frame (split by the pipeline tracer's spans) and
      profile one VIO step;
   6. on phase 5's inputs, the serial pipeline with the eager step over
-     their first 4 s (timed; its trajectory beside phase 5's) and the overlapped pipeline with the
+     their first 2.5 s (timed; its trajectory beside phase 5's) and the overlapped pipeline with the
      graphed step (the same events as phase 5, max |Δp| ≤ 1e-6 m); the
      graphed step against the eager one on the same blob and prior (≤ 1e-9
      relative, both marginalizations); one step of each in turns, and the
@@ -53,7 +53,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      FAST points, BRIEF bits and database scores of the CUDA run against the
      CPU port's.  7b, map reuse: the committed JAX map
      (results/two_session_map.npz, 204 keyframes) loaded, then session B's
-     96 keyframes on the radius-3.7 circuit: a loop to the base, the merge,
+     24 keyframes (6 s) on the radius-3.7 circuit: a loop to the base, the merge,
      the base poses bitwise unchanged after every solve, save → load
      reproducing the graph.  In every add_keyframe the host syncs are
      counted (one for the query, one per verification, one per solve);
@@ -115,7 +115,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and 11 × 256 with marg_old true and false, and the sharded BA at 11 ×
      4096, float64 to tests/test_parallel.py's bounds.  10a one rank under
      NCCL; 10b two (lm = 2) and four (seq = 2 × lm = 2) ranks sharing the
-     card under gloo, the four also in float32 (a distinct problem per
+     card under gloo (the three launches at once), the four also in float32 (a distinct problem per
      seq shard; finite, the state within 1e-4 of the one-rank float32
      solve).  Replicated outputs bitwise equal across the ranks
      that share them, 3 all-reduces per LM iteration of the window solve
@@ -134,7 +134,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      end; 11e tests/test_init_health.py's corrupted-init 6 s proxy through
      the port's `run_proxy` (absorbed, or a reboot and a new
      initialization); 11f `python -m vins_tpu_torch.run_synthetic --frames
-     40` as a subprocess, exit 0.  No hand kernel runs in 11a-11d.
+     20` as a subprocess, exit 0.  No hand kernel runs in 11a-11d.
   12. the proxy entry points as a user calls them (`run_proxy.main`,
      `run_longrun.main`, float64): 12a tests/test_proxy_e2e.py's 3 s proxy
      and its bounds, one `lk_pyramid` launch per tracked frame, ms per VIO
@@ -144,6 +144,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      beside its ms per keyframe); 12c `run_longrun` just past one lap (the
      same loop and ATE checks).  Each last line is a JSON object
      with the JAX tool's keys.
+  13. the last modules as a user calls them: 13a chessboard calibration
+     through `calibrate_camera.main` on 8 rendered 752x480 views, PINHOLE
+     and KANNALA_BRANDT (the card's corners against the CPU port's, its
+     intrinsics against the CPU port's on the same corners, the pinhole
+     within 6 px of the truth, rms < 0.5 px; find_chessboard and calibrate
+     timed); 13b `ArOverlay.render` over 30 published frames of 12b's run
+     with its camera poses and landmark cloud (each frame against the CPU
+     port's, ms a frame); 13c `run_two_session.main` (session A 24 s, B 10
+     s): a loop to the base, the merge, the base bitwise unchanged, no
+     reboot, one `lk_pyramid` launch per tracked frame, the corrected ATE
+     bound, both sessions beside the JAX run's results/two_session.json.
 Then it prints a `kernels` JSON line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 
@@ -155,6 +166,7 @@ last `{"ok": true, "device": {...}}`.
     python3 chip_smoke.py --phases 10     # build, then only the sharded solve
     python3 chip_smoke.py --phases 11     # build, then only the synthetic estimator
     python3 chip_smoke.py --phases 12     # build, then only the proxy entry points
+    python3 chip_smoke.py --phases 12,13  # ... and calibration, the AR overlay, two sessions
 """
 from __future__ import annotations
 
@@ -196,18 +208,21 @@ JAX_ATE_M, JAX_INIT_PUB = 0.38646, 15
 LIMITS.update(ate_max_m=min(0.35, 2.0 * JAX_ATE_M), init_pub_max=JAX_INIT_PUB + 5)
 PROXY_SECONDS = 10.0
 # Phase 6 runs the eager serial pipeline over the first EAGER_SECONDS of
-# phase 5's inputs (10 s until the proxy entry points' phase 12 needed its
-# time): initialization at published frame 11 and ~28 VIO frames, enough for
+# phase 5's inputs (10 s until phase 12, 4 s until phase 13 needed the
+# time): initialization at published frame 11 and ~13 VIO frames, enough for
 # the timing, the events and the trajectory against phase 5's same frames.
-EAGER_SECONDS = 4.0
+EAGER_SECONDS = 2.5
 
 # Phase 7: the loop back-end (PoseGraph with the port config's defaults:
 # min_loop_num 25, pg_opt_interval 2 s) on keyframes rendered on the card in
-# the JAX proxy's room, 4 per second from t = 1 s to 25 s (96 per session);
-# the VIO drift grows linearly to +2° yaw and (0.30, −0.20, 0.10) m at the
-# last keyframe (tests/test_loop.py:205-217's model).  A loop between true
-# positions more than 1.5 m or true yaws more than 30° apart is false.
-LOOP_KF_HZ, LOOP_T0, LOOP_T1 = 4.0, 1.0, 25.0
+# the JAX proxy's room, 4 per second from t = 1 s to 25 s (96 keyframes;
+# 7b's session B to LOOP_B_T1 = 7 s, 24 keyframes: its loop to the base and
+# the merge came at its second keyframe, t = 1.25 s, in the CPU port, and
+# phase 13c drives map reuse end to end); the VIO drift grows linearly to
+# +2° yaw and (0.30, −0.20, 0.10) m at t = 25 s (tests/test_loop.py:205-217's
+# model).  A loop between true positions more than 1.5 m or true yaws more
+# than 30° apart is false.
+LOOP_KF_HZ, LOOP_T0, LOOP_T1, LOOP_B_T1 = 4.0, 1.0, 25.0, 7.0
 LOOP_DRIFT_YAW_DEG, LOOP_DRIFT_T = 2.0, (0.30, -0.20, 0.10)
 FALSE_LOOP_M, FALSE_LOOP_DEG = 1.5, 30.0
 LOOP_CPU_KFS = (64, 76, 88)  # keyframes whose features the CPU port recomputes
@@ -1354,12 +1369,12 @@ def host_ms(fn, runs: int = 10, warmup: int = 2) -> float:
 
 
 def loop_session(pg, dev, ren, cam, radius: float, sequence: int, gen, counter, keep=(),
-                 after=None):
+                 after=None, t1: float = LOOP_T1):
     """Feed one session of keyframes through the module-3 feature function
     and `PoseGraph.add_keyframe`: `Trajectory.circuit(radius, period 16,
-    height 1)` from LOOP_T0 to LOOP_T1 at LOOP_KF_HZ, rendered on the card
+    height 1)` from LOOP_T0 to `t1` at LOOP_KF_HZ, rendered on the card
     with σ = 2 noise; the VIO pose is the true one with a drift growing
-    linearly to LOOP_DRIFT_* at the last keyframe; the window points are a
+    linearly to LOOP_DRIFT_* at LOOP_T1; the window points are a
     16×16 pixel grid (no estimator: no landmarks, no feature ids).  Host
     syncs are counted by `counter` (a SyncCounter on `pg`) inside the
     query, verifications and solves, and by the record elsewhere.  Returns
@@ -1373,7 +1388,8 @@ def loop_session(pg, dev, ren, cam, radius: float, sequence: int, gen, counter, 
     from vins_tpu_torch.sim.synthetic import Trajectory
 
     traj = Trajectory.circuit(radius=radius, period=16.0, height=1.0)
-    n = int(round((LOOP_T1 - LOOP_T0) * LOOP_KF_HZ))
+    n = int(round((t1 - LOOP_T0) * LOOP_KF_HZ))
+    n_drift = int(round((LOOP_T1 - LOOP_T0) * LOOP_KF_HZ))
     Ric, tic = np.asarray(proxy.R_IC_FORWARD), np.asarray(proxy.TIC)
     ys, xs = torch.meshgrid(torch.linspace(40.0, 440.0, 16), torch.linspace(40.0, 712.0, 16),
                             indexing="ij")
@@ -1387,7 +1403,7 @@ def loop_session(pg, dev, ren, cam, radius: float, sequence: int, gen, counter, 
     for k in range(n):
         t = LOOP_T0 + k / LOOP_KF_HZ
         p_true, q_true = traj.pos_fn(t).numpy(), traj.q(t).numpy()
-        frac = k / (n - 1)
+        frac = k / (n_drift - 1)
         Rd = nplie.ypr2R(np.array([LOOP_DRIFT_YAW_DEG * frac, 0.0, 0.0]))
         p_vio = Rd @ p_true + np.asarray(LOOP_DRIFT_T) * frac
         q_vio = nplie.qmul(nplie.R2q(Rd), q_true)
@@ -1606,7 +1622,7 @@ def phase_loop(dev, card: str) -> dict:
 
         syncs_b = SyncCounter(pg2)
         recs_b, _ = loop_session(pg2, dev, ren, cam, radius=3.7, sequence=1, gen=gen,
-                                 counter=syncs_b, after=after)
+                                 counter=syncs_b, after=after, t1=LOOP_B_T1)
         pg2.flush()
         base_unchanged("after flush")
         to_base = [r for r in recs_b if r["loop"] is not None and r["loop"] < n_base]
@@ -2507,17 +2523,28 @@ def phase_sharded(device: str = "cuda") -> dict:
     """Phase 10: `run_sharded` as rank processes on the card (10a one rank
     under NCCL; 10b two and four ranks sharing the card under gloo, float64
     and float32), each held by the worker against the one-rank solve on the
-    same device; here the records are checked and kept."""
+    same device; here the records are checked and kept.  The three launches
+    run at once (seven processes on the one card), so each one's times
+    include the others' load."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from vins_tpu_torch.run_sharded import launch
 
     t_phase = time.perf_counter()
-    out = {}
-    for tag, n, args in SHARDED_RUNS:
-        dtypes = args[args.index("--dtype") + 1].split(",") if "--dtype" in args else ["float64"]
+
+    def run(n, args):
         t0 = time.perf_counter()
         ranks = launch(n, ["--device", device, "--frames", str(SHARDED_FRAMES),
                            "--landmarks", ",".join(map(str, SHARDED_VIO_L)),
                            "--ba-landmarks", str(SHARDED_BA_L), *args], SHARDED_LIMIT_S)
+        return ranks, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(SHARDED_RUNS)) as pool:
+        runs = [pool.submit(run, n, args) for _, n, args in SHARDED_RUNS]
+        runs = [r.result() for r in runs]
+    out = {}
+    for (tag, n, args), (ranks, seconds) in zip(SHARDED_RUNS, runs):
+        dtypes = args[args.index("--dtype") + 1].split(",") if "--dtype" in args else ["float64"]
         for r, (rc, text) in enumerate(ranks):
             check(rc == 0, f"phase {tag}: rank {r} exited {rc}:\n{text[-3000:]}")
         lines = [ln for ln in ranks[0][1].splitlines() if ln.startswith("{")]
@@ -2536,11 +2563,11 @@ def phase_sharded(device: str = "cuda") -> dict:
         check(rec["ba"]["within_bounds"] and rec["ba"]["replicas_bitwise_equal"]
               and rec["ba"]["all_reduces_per_lm_iteration"] == ALL_REDUCES_PER_LM_ITERATION["ba"],
               f"phase {tag}: BA {rec['ba']}")
-        rec["seconds"] = time.perf_counter() - t0
+        rec["seconds"] = seconds
         out[tag] = rec
         log(f"phase {tag}: " + json.dumps(rec))
-    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s of phase time (ranks sharing one "
-        f"card: the times are not a scaling result)")
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s of phase time (the three launches at "
+        f"once, seven ranks sharing one card: the times are not a scaling result)")
     return out
 
 
@@ -2560,8 +2587,10 @@ def phase_sharded(device: str = "cuda") -> dict:
 # same frame by the window path with a scale of 3.64975, and ended in
 # NON_LINEAR with ATE 0.0151316 m.  Margins: the rotation and the ATE may be
 # twice the reference's; the scale within 1 % of it.
-SYN = dict(e2e_frames=40, recovery_frames=20, hover_frames=36, ex_frames=60, ex_period=5.0,
-           corrupted_seconds=6.0)
+# 11f's entry point runs 20 frames (60 until PR 12, 40 until PR 13): it
+# initializes at frame 11, and its exit code holds the initialization and ATE.
+SYN = dict(e2e_frames=40, entry_frames=20, recovery_frames=20, hover_frames=36, ex_frames=60,
+           ex_period=5.0, corrupted_seconds=6.0)
 SYN_BA, SYN_BG = (0.02, -0.01, 0.015), (0.002, 0.003, -0.001)
 JAX_EX = dict(accepted_frame=35, ric_err_rad=0.00223449, init_frame=35, init_reason="ok",
               init_scale=3.64975, ate_m=0.0151316)
@@ -2825,7 +2854,7 @@ def phase_synthetic(dev, card: str) -> dict:
     t0 = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run([sys.executable, "-m", "vins_tpu_torch.run_synthetic", "--frames",
-                           str(SYN["e2e_frames"])], cwd=root,
+                           str(SYN["entry_frames"])], cwd=root,
                           capture_output=True, text=True, timeout=300)
     check(proc.returncode == 0, f"phase 11f: run_synthetic exited {proc.returncode}:\n"
           f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
@@ -2877,12 +2906,19 @@ class FrameLog:
     """While open, records every `Pipeline.process_image` call: the kind of
     the event it returned, its host ms (the serial pipeline's spans wait for
     the device; the overlapped one's do not), the ms of the tracer's spans in
-    it, and whether it handed a keyframe to the pose graph."""
+    it, and whether it handed a keyframe to the pose graph.  With `keep` > 0
+    it also keeps (t, image) of the last `keep` calls in `frames`."""
+
+    def __init__(self, keep: int = 0):
+        import collections
+
+        self.frames = collections.deque(maxlen=keep)
 
     def __enter__(self):
         from vins_tpu_torch.pipeline import Pipeline
 
         self.recs = []
+        frames = self.frames
         self._saved = process, build = Pipeline.process_image, Pipeline._build_keyframe_payload
         recs = self.recs
 
@@ -2896,6 +2932,8 @@ class FrameLog:
                        keyframe=pipe._handed)
             rec.update({k: stats.last(k) if stats.count(k) > n0[k] else 0.0 for k in SPANS})
             recs.append(rec)
+            if frames.maxlen:
+                frames.append((t, img))
             return ev
 
         def handed(pipe):
@@ -2954,7 +2992,9 @@ def ate_bound(res: dict, vio: str, corrected: str, tag: str) -> None:
 
 
 def phase_proxy_entry() -> dict:
-    """Phase 12: the proxy entry points on the card (12a-12c)."""
+    """Phase 12: the proxy entry points on the card (12a-12c).  Returns the
+    records and what phase 13b overlays (12b's last frames, poses, extrinsics
+    and landmark cloud)."""
     import tempfile
 
     import torch
@@ -3014,7 +3054,7 @@ def phase_proxy_entry() -> dict:
     # carries, so the frame loop does no work for it
     tag = "12b"
     lk_pyramid.launches = lk_level.launches = 0
-    with tempfile.TemporaryDirectory() as d, FrameLog() as fl:
+    with tempfile.TemporaryDirectory() as d, FrameLog(keep=AR_FRAMES + 5) as fl:
         argv = ["--duration", str(LOOP12_SECONDS), "--period", "16", "--loop", *cuda,
                 "--debug-image", "--out-dir", d]
         res, run, _, sec = entry_point(run_proxy.main, argv, tag,
@@ -3057,6 +3097,11 @@ def phase_proxy_entry() -> dict:
                     worker_pose_graph_ms=spans["pose_graph"],
                     worker_loop_image_ms=spans["loop_image"])
     log(f"phase 12b: {json.dumps(out['b'])}")
+    # what phase 13b overlays: 12b's last frames, the estimator's poses at
+    # them, its extrinsics and its landmark cloud at the end of the run
+    est = pipe.estimator
+    ar = dict(frames=list(fl.frames), trajectory=list(pipe.trajectory), tic=est.tic.copy(),
+              qic=est.qic.copy(), landmarks=pipe.landmarks_world())
     im, pg = spans["loop_image"], spans["pose_graph"]
     log(f"phase 12b: run_proxy --duration {LOOP12_SECONDS:g} --loop --debug-image: "
         f"{loops['loops']} loops (first at t = {out['b']['first_loop_t']} s), none false, "
@@ -3089,6 +3134,307 @@ def phase_proxy_entry() -> dict:
         f"VIO {res['ate_vio_m']} m, corrected {res['ate_corrected_live_m']} m; {sec:.1f} s")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 12: {out['seconds']:.1f} s of phase time")
+    return out, ar
+
+
+# ---- 13. calibration, the AR overlay, two-session map reuse ------------------------
+# 13a: CALIB_VIEWS chessboard views (tests/test_calib.py's board: 6 × 9 inner
+# corners of 0.1 m, its poses and inverse-warp renderer, 2×2 samples a
+# pixel) at 752×480 through the EuRoC pinhole intrinsics of
+# sim/proxy.EUROC_INTRINSICS without distortion, as PNGs through
+# `calibrate_camera.main`; the pinhole within
+# tests/test_calib.py:151's 6 px of the truth, the rms under 0.5 px; the card
+# held to the CPU port on the same images (corners) and the same corners
+# (intrinsics).  13b: `ArOverlay.render` over 12b's last AR_FRAMES published
+# frames.  13c: `run_two_session.main`, session A at its default 24 s,
+# session B at TWO_SESSION_B_SECONDS (the JAX run's first relocalization to
+# the base came at 2.6 s, results/two_session.json).
+CALIB_VIEWS, CALIB_ROWS, CALIB_COLS, CALIB_SQ, CALIB_SUPERSAMPLE = 8, 6, 9, 0.1, 2
+CALIB_TRUTH_PX, CALIB_RMS_MAX_PX = 6.0, 0.5
+CALIB_CORNER_TOL_PX, CALIB_INTR_TOL = 1e-3, 1e-6
+AR_FRAMES, AR_CUBE_AHEAD_M = 30, 3.0
+TWO_SESSION_B_SECONDS = 10.0
+TWO_SESSION_JSON = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
+                                "two_session.json")
+TWO_SESSION_KEYS = {"session_a": ("ate_vio_m", "keyframes", "loops"),
+                    "session_b": ("ate_vio_m", "ate_corrected_m", "keyframes_new",
+                                  "loops_to_base_map", "first_reloc_stamp", "merged_onto_base",
+                                  "pg_optimizes")}
+
+
+def chessboard_views(n: int, dev, seed: int = 4) -> list:
+    """tests/test_calib.py's perspective board views (its `_render_perspective`
+    inverse warp and its full-pipeline test's poses) at 752×480 through the
+    EuRoC pinhole without distortion, each pixel the mean of CALIB_SUPERSAMPLE²
+    samples, rendered in float64 on `dev`; uint8 numpy images.  (Sampled once
+    per pixel, as the test does, the hard edges bias the sub-pixel corners by
+    ~0.25 px, test_calib.py:147-150, which on these 8 views puts fy 6.27 px
+    from the truth in the CPU port.)"""
+    import torch
+
+    from vins_tpu_torch.core import nplie
+    from vins_tpu_torch.sim import proxy
+
+    k = proxy.EUROC_INTRINSICS
+    K = np.array([[k["fx"], 0.0, k["cx"]], [0.0, k["fy"], k["cy"]], [0.0, 0.0, 1.0]])
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    yy, xx = torch.meshgrid(torch.arange(proxy.EUROC_H, **f64), torch.arange(proxy.EUROC_W, **f64),
+                            indexing="ij")
+    offs = (np.arange(CALIB_SUPERSAMPLE) + 0.5) / CALIB_SUPERSAMPLE - 0.5
+    out = []
+    for _ in range(n):
+        R = nplie.q2R(nplie.deltaQ(rng.uniform(-0.35, 0.35, 3)))
+        t = np.array([-0.45 + rng.uniform(-0.1, 0.1), -0.3 + rng.uniform(-0.07, 0.07),
+                      1.4 + rng.uniform(-0.2, 0.2)])
+        Hi = torch.from_numpy(np.linalg.inv(K @ np.column_stack([R[:, 0], R[:, 1], t]))).to(dev)
+        acc = torch.zeros_like(xx)
+        for oy in offs:
+            for ox in offs:
+                b = torch.stack([xx + ox, yy + oy, torch.ones_like(xx)], -1) @ Hi.T
+                sx = torch.floor(b[..., 0] / b[..., 2] / CALIB_SQ)
+                sy = torch.floor(b[..., 1] / b[..., 2] / CALIB_SQ)
+                inside = ((sx >= -1) & (sx < CALIB_COLS) & (sy >= -1) & (sy < CALIB_ROWS)
+                          & (b[..., 2] != 0))
+                acc += torch.where(inside & ((sx + sy) % 2 == 0), 40.0, 220.0)
+        out.append(torch.round(acc / CALIB_SUPERSAMPLE ** 2).to(torch.uint8).cpu().numpy())
+    return out
+
+
+def cuda_ms(fn, runs: int = 3) -> float:
+    """Median ms of `fn()` between CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    ts = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
+def phase_calibration(dev) -> dict:
+    """13a: chessboard calibration through `calibrate_camera.main` on the
+    card, PINHOLE and KANNALA_BRANDT."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from vins_tpu_torch import calibrate_camera
+    from vins_tpu_torch.calib.chessboard import board_object_points, find_chessboard
+    from vins_tpu_torch.calib.intrinsics import calibrate
+    from vins_tpu_torch.io.png import write_png_gray
+    from vins_tpu_torch.sim import proxy
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "13a: TF32 is on (the corner response is a cuDNN convolution)")
+    views = chessboard_views(CALIB_VIEWS, dev)
+    k = proxy.EUROC_INTRINSICS
+    truth = np.array([k["fx"], k["fy"], k["cx"], k["cy"]])
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for i, img in enumerate(views):
+            write_png_gray(os.path.join(d, f"view{i}.png"), img)
+        # the card's corners against the CPU port's on the same images
+        worst, found = 0.0, 0
+        for img in views:
+            gc, okc = find_chessboard(img.astype(np.float32), CALIB_ROWS, CALIB_COLS, device=dev)
+            cc, okp = find_chessboard(img.astype(np.float32), CALIB_ROWS, CALIB_COLS,
+                                      device="cpu")
+            check(okc == okp, f"13a: the board found on the card {okc}, on the CPU {okp}")
+            if okc:
+                found += 1
+                worst = max(worst, float(np.max(np.abs(gc - cc))))
+        check(worst <= CALIB_CORNER_TOL_PX, f"13a: card corners {worst} px from the CPU port's")
+        check(found >= 4, f"13a: the board found in {found} of {CALIB_VIEWS} views")
+        for model in ("PINHOLE", "KANNALA_BRANDT"):
+            argv = ["-i", d, "-w", str(CALIB_COLS), "--rows", str(CALIB_ROWS), "-s", str(CALIB_SQ),
+                    "--model", model, "--iters", "25", "-o", os.path.join(d, f"{model}.yaml"),
+                    "--device", "cuda"]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+                res, calib, corners = calibrate_camera.main(argv)
+            sec = time.perf_counter() - t0
+            check(buf.getvalue().strip().splitlines()[-1] == json.dumps(res),
+                  f"13a {model}: the last line is not the JSON")
+            check(calib.intrinsics.device.type == "cuda"
+                  and calib.intrinsics.dtype == torch.float64,
+                  f"13a {model}: intrinsics {calib.intrinsics.dtype} on {calib.intrinsics.device}")
+            intr = calib.intrinsics.cpu().numpy()
+            obj = np.stack([board_object_points(CALIB_ROWS, CALIB_COLS, CALIB_SQ)] * len(corners))
+            args = (torch.from_numpy(obj), torch.from_numpy(corners),
+                    torch.ones(obj.shape[:2], dtype=torch.bool))
+            ref = calibrate(*args, model=model, iters=25)
+            want = ref.intrinsics.numpy()
+            scaled = float(np.max(np.abs(intr - want) / np.maximum(np.abs(want), 1.0)))
+            check(scaled <= CALIB_INTR_TOL and abs(float(calib.rms) - float(ref.rms)) <= 1e-6,
+                  f"13a {model}: card {intr} against the CPU port {want} ({scaled:.3g})")
+            rms = float(calib.rms)
+            check(rms < CALIB_RMS_MAX_PX, f"13a {model}: rms {rms} px")
+            err = float(np.max(np.abs(intr[:4] - truth)))
+            if model == "PINHOLE":
+                check(err <= CALIB_TRUTH_PX, f"13a: pinhole {intr[:4]} against the truth {truth}")
+            dargs = [a.to(dev) for a in args]
+            out[model] = dict(views_used=res["views_used"], rms_px=rms, intrinsics=intr.tolist(),
+                              max_err_vs_truth_px=err, card_vs_cpu_scaled=scaled,
+                              main_seconds=sec,
+                              calibrate_ms=cuda_ms(lambda: calibrate(*dargs, model=model,
+                                                                     iters=25)))
+    img = torch.from_numpy(views[0].astype(np.float32)).to(dev)
+    out["find_chessboard_ms"] = cuda_ms(lambda: find_chessboard(img, CALIB_ROWS, CALIB_COLS,
+                                                                 device=dev))
+    out.update(corners_card_vs_cpu_max_px=worst, views_found=found,
+               seconds=time.perf_counter() - t_phase)
+    log(f"phase 13a: {json.dumps(out)}")
+    log(f"phase 13a: calibrate_camera on {found} of {CALIB_VIEWS} 752x480 views: pinhole "
+        f"{np.round(out['PINHOLE']['intrinsics'][:4], 2).tolist()} against the truth "
+        f"{truth.tolist()} ({out['PINHOLE']['max_err_vs_truth_px']:.2f} px), rms "
+        f"{out['PINHOLE']['rms_px']:.4f} / {out['KANNALA_BRANDT']['rms_px']:.4f} px (PINHOLE / "
+        f"KANNALA_BRANDT); card ≡ CPU port: corners {worst:.2e} px, intrinsics "
+        f"{out['PINHOLE']['card_vs_cpu_scaled']:.2e} / "
+        f"{out['KANNALA_BRANDT']['card_vs_cpu_scaled']:.2e}; find_chessboard "
+        f"{out['find_chessboard_ms']:.2f} ms, calibrate {out['PINHOLE']['calibrate_ms']:.1f} / "
+        f"{out['KANNALA_BRANDT']['calibrate_ms']:.1f} ms; {out['seconds']:.1f} s")
+    return out
+
+
+def phase_ar(dev, ar: dict) -> dict:
+    """13b: `ArOverlay.render` on the card over AR_FRAMES published frames of
+    12b's run with the estimator's camera poses (body pose ∘ extrinsics) and
+    its landmark cloud; each frame held to the CPU port's render of the same
+    inputs: bit for bit but on the overlay's edges, where the last bit of a
+    float64 edge function can flip a pixel's coverage."""
+    import torch
+
+    from vins_tpu_torch.ar.overlay import ArOverlay
+    from vins_tpu_torch.core import nplie
+    from vins_tpu_torch.sim import proxy
+
+    t_phase = time.perf_counter()
+    poses = {t: (p, q) for t, p, q in ar["trajectory"]}
+    frames = [(t, img) for t, img in ar["frames"] if t in poses][-AR_FRAMES:]
+    check(len(frames) == AR_FRAMES, f"13b: {len(frames)} published frames with a pose")
+
+    def camera_pose(t):
+        p, q = poses[t]
+        return p + nplie.q2R(q) @ ar["tic"], nplie.qmul(q, ar["qic"])
+
+    p_mid, q_mid = camera_pose(frames[AR_FRAMES // 2][0])
+    center = p_mid + nplie.q2R(q_mid) @ np.array([0.0, 0.0, AR_CUBE_AHEAD_M])
+    lm = ar["landmarks"]
+    check(len(lm) > 20 and np.all(np.isfinite(lm)), f"13b: {len(lm)} landmarks")
+    ov = ArOverlay(camera=proxy.euroc_camera(device=dev), center_w=torch.from_numpy(center).to(dev))
+    ov_cpu = ArOverlay(camera=proxy.euroc_camera(device="cpu"), center_w=torch.from_numpy(center))
+    lm_d = torch.from_numpy(lm).to(dev)
+    diffs, covered, ms = [], [], []
+    for t, img in frames:
+        p, q = (torch.from_numpy(x).to(dev) for x in camera_pose(t))
+        ms.append(cuda_ms(lambda: ov.render(img, p, q, lm_w=lm_d), runs=3))
+        got = ov.render(img, p, q, lm_w=lm_d).cpu()
+        pose_cpu = (p.cpu(), q.cpu())
+        want = ov_cpu.render(img.cpu(), *pose_cpu, lm_w=lm_d.cpu())
+        covered.append(int(torch.any(want != img.cpu()[..., None], -1).sum()))
+        differ = torch.any(got != want, -1)
+        diffs.append(int(differ.sum()))
+        if diffs[-1]:
+            # the overlay alone (on a black frame): a differing pixel must
+            # have a neighbour with another overlay value (a cube edge or
+            # seam, a splat's rim, an axis' side)
+            lab = ov_cpu.render(torch.zeros_like(img.cpu()), *pose_cpu, lm_w=lm_d.cpu())
+            edge = torch.zeros_like(differ)
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    edge |= torch.any(lab != torch.roll(lab, (dy, dx), (0, 1)), -1)
+            check(bool(torch.all(edge[differ])),
+                  f"13b: frame t = {t:.1f} s: {int((differ & ~edge).sum())} differing pixels "
+                  f"off the overlay's edges")
+    out = dict(frames=AR_FRAMES, landmarks=int(len(lm)), cube_center_w=center.tolist(),
+               overlay_pixels_median=float(np.median(covered)),
+               frames_with_overlay=int(sum(c > 0 for c in covered)),
+               differing_pixels_per_frame=diffs, ms_per_frame_median=float(np.median(ms)),
+               ms_per_frame_p90=float(np.percentile(ms, 90)),
+               seconds=time.perf_counter() - t_phase)
+    check(out["frames_with_overlay"] >= AR_FRAMES // 2,
+          f"13b: the overlay drew on {out['frames_with_overlay']} of {AR_FRAMES} frames")
+    log(f"phase 13b: ArOverlay.render over {AR_FRAMES} published 752x480 frames of 12b's run, "
+        f"{len(lm)} landmarks: {out['frames_with_overlay']} frames with the cube or axes "
+        f"({out['overlay_pixels_median']:.0f} pixels median); card ≡ CPU port but "
+        f"{max(diffs)} edge pixels a frame at most ({sum(diffs)} in all); "
+        f"{out['ms_per_frame_median']:.2f} ms a frame median, {out['ms_per_frame_p90']:.2f} p90; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def phase_two_session() -> dict:
+    """13c: `run_two_session.main` on the card."""
+    import contextlib
+    import io
+    import tempfile
+
+    from vins_tpu_torch import run_two_session
+    from vins_tpu_torch.frontend.klt_cuda import lk_level, lk_pyramid
+
+    lk_pyramid.launches = lk_level.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(buf):
+        res, run_a, run_b = run_two_session.main(
+            ["--device", "cuda", "--duration-b", str(TWO_SESSION_B_SECONDS), "--out-dir", d])
+        files = sorted(os.listdir(d))
+    sec = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    check(lines[-1] == json.dumps(res), "13c: the last line is not the run's JSON")
+    check({k: tuple(v) for k, v in res.items() if isinstance(v, dict)} == TWO_SESSION_KEYS
+          and "base_map_bitwise_unchanged" in res, f"13c: keys {list(res)}")
+    check(files == ["two_session.json", "two_session_map.npz"], f"13c: files {files}")
+    a, b = res["session_a"], res["session_b"]
+    n = {"a": len(run_a.pipe.trajectory), "b": len(run_b.pipe.trajectory)}
+    seconds_a = run_two_session.parse_args([]).duration_a
+    frames = int(round(seconds_a * 10)) + int(round(TWO_SESSION_B_SECONDS * 10))
+    check(b["loops_to_base_map"] >= 1, f"13c: no loop to the base map: {b}")
+    check(b["merged_onto_base"], "13c: session B was not merged onto the base")
+    check(res["base_map_bitwise_unchanged"], "13c: the base map moved")
+    fails = (run_a.pipe.estimator.failures, run_b.pipe.estimator.failures)
+    check(fails == (0, 0), f"13c: reboots {fails} (sessions A, B)")
+    check(lk_pyramid.launches == frames - 2 and lk_level.launches == 0,
+          f"13c: {lk_pyramid.launches} lk_pyramid launches for {frames - 2} tracked frames")
+    ate_bound(b, "ate_vio_m", "ate_corrected_m", "13c")
+    with open(TWO_SESSION_JSON) as f:
+        jax = json.load(f)
+    out = dict(result=res, seconds=sec, lk_pyramid_launches=lk_pyramid.launches,
+               vio_poses=n, dtype=str(run_a.pipe.estimator.prior.J.dtype),
+               dropped_a=run_a.pipe.pg_dropped, optimizes_a=run_a.pipe.pose_graph.n_optimizes,
+               jax=jax)
+    log(f"phase 13c: {json.dumps(out)}")
+    log(f"phase 13c: run_two_session: A {seconds_a:g} s, {a['keyframes']} keyframes, "
+        f"{a['loops']} loops, "
+        f"ATE {a['ate_vio_m']} m (JAX {jax['session_a']['keyframes']}, "
+        f"{jax['session_a']['loops']}, {jax['session_a']['ate_vio_m']} m over 24 s); B "
+        f"{TWO_SESSION_B_SECONDS:g} s, {b['keyframes_new']} keyframes, {b['loops_to_base_map']} "
+        f"loops to the base (first at t = {b['first_reloc_stamp']} s), merged, "
+        f"{b['pg_optimizes']} solves, ATE VIO {b['ate_vio_m']} m, corrected "
+        f"{b['ate_corrected_m']} m (JAX over 24 s: {jax['session_b']['loops_to_base_map']} loops "
+        f"from {jax['session_b']['first_reloc_stamp']} s, {jax['session_b']['ate_vio_m']} / "
+        f"{jax['session_b']['ate_corrected_m']} m); base bitwise unchanged, no reboot; "
+        f"lk_pyramid {lk_pyramid.launches} launches = {frames - 2} tracked frames; {sec:.1f} s")
+    return out
+
+
+def phase_last_modules(dev, ar: dict) -> dict:
+    """Phase 13: 13a calibration, 13b the AR overlay, 13c two-session map
+    reuse."""
+    t_phase = time.perf_counter()
+    out = dict(a=phase_calibration(dev), b=phase_ar(dev, ar), c=phase_two_session())
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13: {out['seconds']:.1f} s of phase time")
     return out
 
 
@@ -3098,11 +3444,11 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13",
                     help="phases after the build to run; any other set than the default "
                          "prints no result lines")
     phases = {int(x) for x in ap.parse_args().phases.split(",")}
-    full = phases == set(range(2, 13))
+    full = phases == set(range(2, 14))
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     walls, last = {}, [time.perf_counter()]
@@ -3223,9 +3569,16 @@ def main() -> int:
 
     # ---- 12. the proxy entry points ---------------------------------------------------
     if 12 in phases:
-        entry = phase_proxy_entry()
+        entry, ar = phase_proxy_entry()
         log("phase 12: " + json.dumps(entry))
         wall("12")
+
+    # ---- 13. calibration, the AR overlay, two-session map reuse ----------------------
+    if 13 in phases:
+        check(12 in phases, "phase 13 overlays phase 12b's frames: ask for both")
+        last_modules = phase_last_modules(dev, ar)
+        log("phase 13: " + json.dumps(last_modules))
+        wall("13")
     log(f"wall seconds by phase: {json.dumps(walls)}, {sum(walls.values()):.1f} in all")
     if not full:
         return 0
@@ -3243,6 +3596,7 @@ def main() -> int:
              launches_proxy_3s=entry["a"]["launches"]["lk_pyramid"],
              launches_proxy_loop=entry["b"]["lk_pyramid_launches"],
              launches_longrun=entry["c"]["lk_pyramid_launches"],
+             launches_two_session=last_modules["c"]["lk_pyramid_launches"],
              ms=t["lk_pyramid"], **common, launch_floor_ms=t["launch_floor"],
              warps_per_block=WARPS_PER_BLOCK,
              ms_by_warps_per_block={w: t[f"lk_pyramid_w{w}"] for w in WARPS},
